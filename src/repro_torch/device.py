@@ -1,0 +1,19 @@
+"""Published peaks of one NVIDIA H100 SXM, the port's target card.
+
+The counterpart of the TPU v5e constants in `repro.launch.mesh`.  Sources:
+NVIDIA's H100 data sheet and the Hopper architecture white paper (SXM part,
+dense rates without sparsity, at the full 700 W power limit; a card set
+below it runs slower under load).  Measured numbers are taken on the card
+and recorded with its name and power limit; these are the ceilings a
+kernel's roofline bound is computed against.
+"""
+HBM_BW = 3.35e12                   # B/s, device memory
+PEAK_FLOPS_FP32 = 67e12            # FLOP/s outside the tensor cores
+
+
+def roofline_seconds(bytes_moved: float, flops: float):
+    """The least time the card could take for work that must move
+    ``bytes_moved`` through device memory and do ``flops`` float32
+    operations: the larger of the two, and which one bounds it."""
+    move, compute = bytes_moved / HBM_BW, flops / PEAK_FLOPS_FP32
+    return (move, "bytes") if move >= compute else (compute, "operations")

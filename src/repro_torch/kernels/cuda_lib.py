@@ -1,0 +1,130 @@
+"""Build, load and launch the hand-written CUDA kernels of `repro_torch/csrc`.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
+by ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
+the repository root, then loaded with `ctypes` (no PyTorch headers, so a
+build takes seconds).  The library's file name carries a hash of the source,
+the shared headers and the flags, so an edited source is rebuilt and a stale one is never
+loaded.  Nothing is built or loaded at import: a kernel builds at its first
+launch, or all of them together (one ``nvcc`` each, in parallel) through
+`build_all`.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch; the
+wrapper raises if it is not 0, because a refused launch never runs and
+``torch.cuda.synchronize()`` would not report it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "host with the CUDA toolkit")
+    return found
+
+
+class CudaKernel:
+    """One C entry point of one ``csrc`` source.  ``launches`` counts the
+    calls that launched the kernel (a plain integer a run may reset)."""
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence) -> None:
+        self.source = CSRC / source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.ptxas_log = ""
+        self._fn = None
+
+    @property
+    def library(self) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in [self.source, *sorted(CSRC.glob("*.cuh"))]:
+            h.update(path.read_bytes())
+        digest = h.hexdigest()
+        return BUILD_DIR / f"{self.source.stem}-{digest[:12]}.so"
+
+    def _build_cmd(self, tmp: Path):
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+
+    def _load(self) -> None:
+        fn = getattr(ctypes.CDLL(str(self.library)), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+
+    def ensure_loaded(self) -> None:
+        if self._fn is None:
+            build_all([self])
+
+    def __call__(self, *args) -> None:
+        self.ensure_loaded()
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: launch failed with CUDA "
+                               f"error {err}")
+        self.launches += 1
+
+
+def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
+    """Compile every kernel whose library is missing — one ``nvcc`` per
+    source, all started together — and load them all.  Returns the build
+    seconds per source (0.0 where the library was already built)."""
+    import time
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pending = {}
+    for k in kernels:
+        lib = k.library
+        if not lib.exists() and lib not in pending:
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            pending[lib] = (k, tmp, time.perf_counter(), subprocess.Popen(
+                k._build_cmd(tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    seconds = {k.source.name: 0.0 for k in kernels}
+    failures = []
+    for lib, (k, tmp, t0, proc) in pending.items():
+        log, _ = proc.communicate()
+        seconds[k.source.name] = time.perf_counter() - t0
+        for other in kernels:
+            if other.source == k.source:
+                other.ptxas_log = log
+        if proc.returncode != 0:
+            failures.append(f"{k.source.name}:\n{log}")
+            continue
+        os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    for k in kernels:
+        if k._fn is None:
+            k._load()
+    return seconds
+
+
+#: kernel 1 — the fused time-tiled ring stencil (`csrc/ring_stencil.cu`)
+RING_STENCIL = CudaKernel("ring_stencil.cu", "ring_stencil_f32",
+                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+#: kernel 2 — one addressable time step (`csrc/addressable_step.cu`)
+ADDRESSABLE_STEP = CudaKernel("addressable_step.cu", "addressable_step_f32",
+                              [_P, _P, _I, _I, _I, _I, _P])
+#: kernel 3 — trace replay through a ring of slots (`csrc/replay.cu`)
+REPLAY = CudaKernel("replay.cu", "replay_i32",
+                    [_P, _P, _P, _I, _P, _I, _I, _P, _P])
+
+KERNELS = (RING_STENCIL, ADDRESSABLE_STEP, REPLAY)

@@ -1,0 +1,33 @@
+"""Executable channel runtime: the lowering IR, its backends, and the
+operational validation stage.
+
+    lowering     — lowering vocabulary, THE verdict→lowering table, registry
+    simulator    — trace-driven reference backend (vectorized replay)
+    validate     — `Analysis.validate()`: every verdict executed, both ways
+    cuda_backend / cuda_codegen — hand-written CUDA ring kernels: trace
+                   replay through a real ring + the whole-PPN compiler
+                   behind `Analysis.compile(backend="cuda")` (lazy; imports
+                   torch, builds the kernels at first launch)
+"""
+from .lowering import (BROADCAST_REGISTER, CHUNK_SPLIT, DEPTH_SPLIT,
+                       FIFO_STREAM, LOWERINGS, PATTERN_LOWERING,
+                       REORDER_BUFFER, Backend, BackendUnavailable,
+                       ChannelLowering, available_backends, backend,
+                       backend_names, is_cheap, is_stream,
+                       lowering_for_pattern, register_backend,
+                       split_lowering)
+from .simulator import (ChannelTrace, OrderViolation, SimulationError,
+                        channel_late_edges, simulate_channel, trace_channel)
+from .validate import (ChannelValidation, ValidationError, ValidationReport,
+                       validate_analysis)
+
+__all__ = [
+    "BROADCAST_REGISTER", "Backend", "BackendUnavailable", "CHUNK_SPLIT",
+    "ChannelLowering", "ChannelTrace", "ChannelValidation", "DEPTH_SPLIT",
+    "FIFO_STREAM", "LOWERINGS", "OrderViolation", "PATTERN_LOWERING",
+    "REORDER_BUFFER", "SimulationError", "ValidationError",
+    "ValidationReport", "available_backends", "backend", "backend_names",
+    "channel_late_edges", "is_cheap", "is_stream", "lowering_for_pattern",
+    "register_backend", "simulate_channel", "split_lowering",
+    "trace_channel", "validate_analysis",
+]

@@ -1,0 +1,304 @@
+"""The ``"cuda"`` backend: lowering IR executed as real ring kernels.
+
+The port of `repro.runtime.pallas_backend`.  Where the ``"reference"``
+backend replays a channel's trace with numpy array ops, this backend
+replays the SAME trace through the memory structure the lowering buys — a
+ring of slots addressed by a hand-written CUDA kernel (``csrc/replay.cu``;
+on a CPU device, its plain PyTorch version):
+
+* the stream family (`FIFO_STREAM` and both split variants) and the
+  broadcast register run the trace's push/pop/retire events against a ring
+  of ``slots`` words, checking *in kernel* that every pop finds the value
+  it expects (an undersized ring gets clobbered and fails as
+  `RingOverflow` — the negative direction `Analysis.validate` demands) and
+  that the pop order is one the structure can serve (violations surface as
+  the same `OrderViolation` the reference backend raises, so the
+  validator's negative checks work unchanged on this backend);
+* the reorder buffer runs the same kernel with order checking disabled —
+  addressable scratch, any pop order, still capacity-checked.
+
+Event lists are built host-side from the dense-rank trace
+(`simulator.trace_channel`): pushes at key ``2·w_rank + 1``, retires at
+``2·last_read``, pops at ``2·r_rank``, sorted by ``(key, kind)`` with
+push < pop < retire at equal key — the exact sweep semantics of
+`ChannelTrace.peak_occupancy`.  Edges the sequential linearization cannot
+serialize (``late_edges``: a pop ranked at/before its push — self-timed in
+reality) get their push forced early to ``min(2·w_rank+1, 2·first_read)``
+so the kernel can still serve them; the reported peak then comes from the
+host sweep, matching the reference backend's accounting.
+
+Ring slots are assigned host-side by greedy interval allocation (optimal:
+max-live slots suffice), then folded modulo the ring size — so compiling
+with fewer slots than peak occupancy provably collides instead of silently
+widening the buffer.
+
+The whole-PPN compiler (`Backend.compile` hook → `Analysis.compile`) lives
+in `runtime.cuda_codegen`; this module wires it to the registry.  The
+lowerings' ``step`` hooks (pipeline collectives) come with the port of the
+pipeline ring.
+"""
+from __future__ import annotations
+
+import ctypes
+import heapq
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..kernels import cuda_lib
+from .cuda_codegen import compile_analysis
+from .lowering import (BROADCAST_REGISTER, CHUNK_SPLIT, DEPTH_SPLIT,
+                       FIFO_STREAM, REORDER_BUFFER, ChannelLowering,
+                       register_backend)
+from .simulator import ChannelTrace, OrderViolation, SimulationError
+
+# event kinds (host-built, executed in kernel order)
+_PUSH, _POP, _RETIRE, _NOOP = 0, 1, 2, 3
+# order disciplines (kernel argument)
+_FIFO, _REGISTER, _REORDER = 0, 1, 2
+
+
+class RingOverflow(SimulationError):
+    """The ring was too small for the trace: a push clobbered a live slot,
+    or a pop read back a value the ring no longer held."""
+
+
+@dataclass(frozen=True)
+class _EventList:
+    """A channel trace lowered to ring operations, in replay order."""
+
+    kind: np.ndarray       # _PUSH/_POP/_RETIRE per event
+    value: np.ndarray      # push position the event concerns
+    slot: np.ndarray       # greedy-allocated ring slot (pre-modulo)
+    needed: int            # slots a collision-free replay requires
+
+
+def _build_events(trace: ChannelTrace) -> _EventList:
+    """Lower the dense-rank trace to a push/pop/retire event list with
+    host-assigned ring slots.  Values are identified by PUSH POSITION
+    (write-rank order), the identity `trace.pops` already uses."""
+    nv, ne = trace.num_values, trace.num_edges
+    # push position <-> value id (per-process ranks are strictly ordered,
+    # so value_wrank has no ties and this is a bijection)
+    order = np.argsort(trace.value_wrank, kind="stable")
+    pos_of_value = np.empty(nv, dtype=np.int64)
+    pos_of_value[order] = np.arange(nv)
+    wrank_by_pos = trace.value_wrank[order]
+    last_read_by_pos = trace.value_last_read[order]
+    # pops arrive in consumer-rank order; their keys are the sorted r_ranks
+    pop_keys = 2 * np.sort(trace.r_rank, kind="stable")
+    first_read_by_pos = np.full(nv, np.iinfo(np.int64).max)
+    np.minimum.at(first_read_by_pos, trace.pops, pop_keys)
+    # late edges: force the push early enough to serve its first pop
+    push_keys = np.minimum(2 * wrank_by_pos + 1, first_read_by_pos)
+    retire_keys = 2 * last_read_by_pos
+    kind = np.concatenate([np.full(nv, _PUSH), np.full(ne, _POP),
+                           np.full(nv, _RETIRE)]).astype(np.int64)
+    value = np.concatenate([np.arange(nv), trace.pops,
+                            np.arange(nv)]).astype(np.int64)
+    key = np.concatenate([push_keys, pop_keys, retire_keys])
+    perm = np.lexsort((kind, key))           # push < pop < retire at a tie
+    kind, value = kind[perm], value[perm]
+    # greedy interval allocation: lowest free slot at push, freed at retire
+    slot = np.zeros(len(kind), dtype=np.int64)
+    free: list = []
+    top = 0
+    held = np.empty(nv, dtype=np.int64)
+    needed = 0
+    for i, (k, v) in enumerate(zip(kind, value)):
+        if k == _PUSH:
+            s = heapq.heappop(free) if free else top
+            if s == top:
+                top += 1
+            held[v] = s
+            needed = max(needed, s + 1)
+        elif k == _RETIRE:
+            heapq.heappush(free, held[v])
+        slot[i] = held[v]
+    return _EventList(kind, value, slot, max(1, needed))
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+# ------------------------------------------------------------- kernel 3 ----
+
+def _replay_plain(kind: torch.Tensor, value: torch.Tensor,
+                  slot: torch.Tensor, ring_size: int,
+                  order_op: int) -> torch.Tensor:
+    """The plain PyTorch version of the replay kernel: the same sequential
+    walk over the events (the events form a dependent chain, so there is
+    nothing to vectorize), on the host values of the tensors."""
+    ring = [-1] * ring_size
+    live = peak = order_v = mism = ovf = unf = 0
+    last_p = -1
+    for k, v, s in zip(kind.tolist(), value.tolist(), slot.tolist()):
+        cur = ring[s]
+        push, pop, retire = k == _PUSH, k == _POP, k == _RETIRE
+        ovf += push and cur != -1
+        unf += pop and cur == -1
+        mism += pop and cur != v and cur != -1
+        if pop:
+            if order_op == _FIFO:           # head-only, consumed once
+                order_v += v <= last_p
+            elif order_op == _REGISTER:     # front re-readable, no regression
+                order_v += v < last_p
+            last_p = max(last_p, v)
+        ring[s] = v if push else -1 if retire else cur
+        live += push - retire
+        peak = max(peak, live)
+    return torch.tensor([peak, order_v, mism, ovf, unf, live],
+                        dtype=torch.int32, device=kind.device)
+
+
+def replay_events(kind: torch.Tensor, value: torch.Tensor,
+                  slot: torch.Tensor, ring_size: int,
+                  order_op: int) -> torch.Tensor:
+    """Run an int32 event list against a ring of ``ring_size`` slots
+    initialised to -1; returns int32 ``[peak, order_violations,
+    mismatches, overflows, underflows, live]``.  Kernel 3,
+    ``csrc/replay.cu``, on CUDA tensors; `_replay_plain` on CPU ones."""
+    if kind.device.type == "cpu":
+        return _replay_plain(kind, value, slot, ring_size, order_op)
+    if kind.device.type != "cuda":
+        raise ValueError(f"replay_events: no kernel for device {kind.device}")
+    for t in (kind, value, slot):
+        if (t.dtype != torch.int32 or not t.is_contiguous()
+                or t.shape != kind.shape or t.device != kind.device):
+            raise ValueError("replay_events takes three contiguous int32 "
+                             "event tensors of one shape on one device")
+    if slot.numel() and not 0 <= int(slot.min()) <= int(slot.max()) < ring_size:
+        raise ValueError(f"replay_events: a slot lies outside the ring of "
+                         f"{ring_size}")
+    ring = torch.empty(ring_size, dtype=torch.int32, device=kind.device)
+    out = torch.empty(6, dtype=torch.int32, device=kind.device)
+    with torch.cuda.device(kind.device):
+        cuda_lib.REPLAY(
+            kind.data_ptr(), value.data_ptr(), slot.data_ptr(),
+            kind.numel(), ring.data_ptr(), ring_size, order_op,
+            out.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+class _RingReplay(ChannelLowering):
+    """Shared machinery: lower the trace to events, run the kernel, raise."""
+
+    order_op: int = _REORDER
+
+    def run(self, trace: ChannelTrace, slots: Optional[int] = None,
+            device=None) -> int:
+        if trace.num_edges == 0:
+            return 0
+        ev = _build_events(trace)
+        nslots = ev.needed if slots is None else max(1, int(slots))
+        n = len(ev.kind)
+        pad = _pow2(n) - n
+        arrays = [np.concatenate([ev.kind, np.full(pad, _NOOP)]),
+                  np.concatenate([ev.value, np.zeros(pad, dtype=np.int64)]),
+                  np.concatenate([ev.slot % nslots,
+                                  np.zeros(pad, dtype=np.int64)])]
+        dev = torch.device("cuda" if device is None else device)
+        kind, value, slot = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                             for a in arrays)
+        peak, order_v, mism, ovf, unf = replay_events(
+            kind, value, slot, _pow2(nslots), self.order_op).tolist()[:5]
+        if order_v:
+            raise OrderViolation(
+                trace.channel,
+                f"{order_v} pop(s) the {self.lowering!r} ring cannot "
+                f"serve (pop order violates the structure's discipline)")
+        if ovf or mism or unf:
+            raise RingOverflow(
+                trace.channel,
+                f"ring of {nslots} slot(s) too small for the trace: "
+                f"{ovf} clobbering push(es), {mism} corrupted pop(s), "
+                f"{unf} pop(s) from an empty slot "
+                f"(needs {ev.needed} slots)")
+        # forced-early pushes (self-timed edges) inflate the kernel's live
+        # counter; report the sequential-schedule peak the validator checks
+        return peak if trace.late_edges == 0 else trace.peak_occupancy()
+
+
+CUDA = register_backend("cuda")
+
+
+@CUDA.register(FIFO_STREAM, DEPTH_SPLIT, CHUNK_SPLIT)
+class VmemRingFifo(_RingReplay):
+    """FIFO verdicts: a ring carried along the streamed axis, popped
+    strictly in push order (the generated-kernel idiom of `cuda_codegen`;
+    split variants are the same ring per part).  On Hopper the ring of the
+    fused stencil lives in shared memory or, when it does not fit, in an
+    L2-resident global scratch; this replay keeps its slots in global
+    memory."""
+
+    order_op = _FIFO
+
+
+@CUDA.register(BROADCAST_REGISTER)
+class CarriedRegister(_RingReplay):
+    """In-order+multiplicity: the front value stays readable (a value the
+    consumer keeps in a register on Hopper); only regression past the
+    stream head fails."""
+
+    order_op = _REGISTER
+
+
+@CUDA.register(REORDER_BUFFER)
+class AddressableVmem(_RingReplay):
+    """Out-of-order: addressable scratch sized by `Analysis.size()` slots
+    (device memory on Hopper) — any pop order, capacity still enforced."""
+
+    order_op = _REORDER
+
+
+# whole-PPN compiler: Analysis.compile(backend="cuda") resolves here
+CUDA.compile = compile_analysis
+
+
+# ------------------------------------------------------------ timing hook ---
+
+def measure_compiled(compiled, n_items: int, steps: int, block: int,
+                     repeats: int = 1, seed: int = 0) -> dict:
+    """Time one compiled stencil (`Analysis.compile(backend="cuda")`) on a
+    concrete geometry with CUDA events: best-of-``repeats`` after a warm-up
+    call, the `bench_pallas` discipline.  This is the DSE's *measured* cost
+    channel.
+
+    Raises ValueError on a geometry the kernel cannot run (`n_items` not a
+    multiple of ``block``, skew misalignment) — callers decide whether to
+    snap the geometry or skip the measurement, but never get a silently
+    different one — and on an executable that does not run on a card (a
+    device time is measured on the device or not at all)."""
+    p = compiled.program
+    if n_items % block:
+        raise ValueError(f"n_items {n_items} % block {block} != 0")
+    if (p.radius * steps) % block:
+        raise ValueError(f"radius*steps ({p.radius * steps}) % block "
+                         f"{block} != 0")
+    if torch.device(compiled.device).type != "cuda":
+        raise ValueError(f"measure_compiled times on a CUDA device, not "
+                         f"{compiled.device!r}")
+    shape = (n_items,) + tuple(max(4, block) for _ in range(p.inner_rank))
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        compiled.device)
+
+    compiled(x, steps, block)                     # build + warm
+    best = float("inf")
+    for _ in range(max(1, repeats)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        compiled(x, steps, block)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return {"seconds": best, "mode": compiled.mode,
+            "n_items": n_items, "steps": steps, "block": block,
+            "device": torch.cuda.get_device_name(torch.device(
+                compiled.device)),
+            "repeats": max(1, repeats)}

@@ -1,0 +1,150 @@
+"""The port's analysis path (`src/repro_torch/`) against the JAX package.
+
+1. Isolation: the port imports neither jax nor `repro`; a subprocess with
+   both blocked runs the whole main path on the CPU.
+2. Report parity: on all 15 PolyBench kernels,
+   ``classify → fifoize → size → plan → validate → report`` gives the same
+   `AnalysisReport` in both packages (apart from the cache counters).
+3. Plan records cross over: the port reads the reference's report JSON
+   (schema 5) into an equal report.
+4. The parts of the reference this slice does not port fail loudly.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.core.polybench  # noqa: F401,E402  (populate the registry)
+import repro_torch.core.polybench  # noqa: F401,E402
+from repro.core import analyze as ref_analyze  # noqa: E402
+from repro.core.registry import get as ref_get, kernel_names  # noqa: E402
+from repro_torch.core import AnalysisReport, analyze  # noqa: E402
+from repro_torch.core.registry import get  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _payload(report) -> dict:
+    doc = report.as_dict()
+    doc.pop("cache")
+    return doc
+
+
+# ------------------------------------------------------------ isolation ----
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        bad = {m for m in _imported_roots(path) if m in ("jax", "repro")}
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+_BLOCKED_MAIN_PATH = r"""
+import importlib.abc, sys
+sys.modules["jax"] = None
+
+class RefuseRepro(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "repro" or name.startswith("repro."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, RefuseRepro())
+import numpy as np
+import repro_torch.core.polybench
+from repro_torch.core import analyze
+from repro_torch.core.registry import get
+
+a = analyze(get("jacobi-1d")).classify().fifoize().size().plan()
+c = a.compile(device="cpu")
+assert c.mode == "fifo-ring", c.describe()
+x = np.random.default_rng(0).standard_normal(32).astype(np.float32)
+got = c(x, 4, 4)
+assert float((got - c.program.ref(got.new_tensor(x), 4)).abs().max()) < 1e-5
+v = a.validate(backend="cuda", device="cpu").validation
+assert (v.replays, v.rejections) == (14, 3), v.summary()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not leaked, leaked
+print("main path ok")
+"""
+
+
+def test_main_path_runs_with_jax_and_repro_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_MAIN_PATH],
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "main path ok" in proc.stdout
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+# --------------------------------------------------------- report parity ---
+
+
+@pytest.mark.parametrize("name", kernel_names())
+def test_report_parity_with_reference(name):
+    want = (ref_analyze(ref_get(name)).classify().fifoize().size().plan()
+            .validate(backend="reference").report())
+    got = (analyze(get(name)).classify().fifoize().size().plan()
+           .validate(backend="reference").report())
+    assert _payload(got) == _payload(want)
+
+
+def test_reference_report_json_round_trips_into_the_port():
+    want = (ref_analyze(ref_get("jacobi-2d")).classify().fifoize().size()
+            .plan().validate().report())
+    text = want.to_json()
+    got = AnalysisReport.from_json(text)
+    assert got.schema_version == 5
+    assert got.as_dict() == json.loads(text)
+    assert got.to_json() == text
+
+
+# ------------------------------------------------------- slice boundary ----
+
+
+def test_unported_modes_name_their_roadmap_item():
+    a = analyze(get("jacobi-1d")).classify().fifoize().size().plan()
+    for mode in ("selftimed", "faults"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            a.validate(mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        analyze(get("jacobi-1d"), sizes="symbolic")
+    assert analyze(get("jacobi-1d"), sizes={"N": 12}).ppn.params["N"] == 12
+
+
+def test_backends_register_without_a_card():
+    from repro_torch.runtime import available_backends
+
+    status = available_backends()
+    assert set(status) == {"reference", "cuda"}
+    assert all(s.startswith("ok") for s in status.values()), status
+    assert "+compile" in status["cuda"]
