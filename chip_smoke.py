@@ -7,7 +7,7 @@ Run from the root of a checkout, on a host with a CUDA device and the CUDA
 toolkit.  The phases, each of which raises (and so exits non-zero) on
 failure:
 
-1. Build the three CUDA kernels from `src/repro_torch/csrc` (one nvcc per
+1. Build the six CUDA kernels from `src/repro_torch/csrc` (one nvcc per
    source, in parallel).
 2. The main path, with every kernel's launch count set to 0 first: for
    jacobi-1d, jacobi-2d and heat-3d at PolyBench/C 4.2.1's EXTRALARGE sizes
@@ -27,6 +27,26 @@ failure:
 5. Each kernel is timed with CUDA events at the main path's shapes, beside
    its plain version, its bound and, where one PyTorch call computes the
    same function, that call.
+6. Fig. 3, with the counts set to 0 first: jacobi-1d at EXTRALARGE
+   (N = 4000, T = 1000) as 125 chained ``jacobi_fifo_op`` calls at
+   steps = block = 8 (the generated ring's tile) must equal phase 2's ring
+   job and the oracle; then the two `repro_torch.bench.fig3_stencil` rows,
+   hand-written against generated at (N, T) = (1024, 128) and
+   (4096, 256).  The hand-written kernel must have launched.
+7. Flash attention through ``attention_op`` at qwen2-7b's width (H = 28,
+   KV = 4, hd = 128), B = 1, causal: S = 4096 in bf16 and float32, and one
+   bf16 call at S = 32768, each held against the kernel's plain version
+   (the 32768 call also against the chunked oracle with 2048-wide
+   chunks).  The kernel must have launched once a call.
+8. The GLA time-mix through ``timemix_op`` at rwkv6-1.6b's width (H = 32,
+   hd = 64), B = 1, S = 4096, chunk 64, float32, with decays drawn at
+   scale 1.0 (the reference's overflow case), held against the plain
+   version and the sequential oracle.  The kernel must have launched.
+9. The three kernels against their plain versions at the shapes of
+   `tests/test_kernels.py`.
+10. The three kernels timed as in phase 5; the attention yardstick is
+   ``F.scaled_dot_product_attention`` with k and v repeated to H heads so
+   that head h reads kv head h % KV, as the reference groups them.
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -39,7 +59,30 @@ shapes is held to rtol = atol = 1e-5, and the 1000-step jobs against the
 oracle to rtol = 1000 * 2**-22 (2.4e-4, twice the worst compounded bias of
 one rounding per step), atol = 1e-5.  The two kernel paths both divide
 exactly, so the fused ring and the addressable fallback are held to each
-other at rtol = atol = 1e-5 after the 1000 steps.
+other at rtol = atol = 1e-5 after the 1000 steps.  The hand-written Fig. 3
+kernel does the ring's operations in the same order, so its 1000-step job
+is held to the ring job at 1e-5 and to the oracle at the long tolerance;
+at small shapes it is held to its plain version at rtol = max(1e-5,
+steps * 2**-22), the same rule per call.
+
+Attention computes in float32 from inputs rounded to their dtype, with the
+sums in another order than the plain version's.  At small shapes float32
+is held to the reference's 1e-5, and bf16 and f16 to its 2e-2 and 1e-2,
+which cover one rounding of the output to the dtype (2**-8 and 2**-11
+relative, one unit of the last place apart at most).  Those are absolute
+and relative tolerances, calibrated where S <= 256 and a typical |o| is
+about 0.15.  At full width they would be loose: with N(0, 1) inputs a
+query row that sees n keys has |o| about sqrt(e / n), 0.036 at S = 4096
+and 0.013 at S = 32768, smaller than an absolute 2e-2.  So phases 7 and
+10 hold each element to rtol = tol plus atol = tol * the RMS of the
+reference's row (one query position, over heads and channels, capped at
+1): float32 at tol = 1e-4 (sums in another order), bf16 at the
+reference's 2e-2.  The chunked oracle rounds the probabilities to bf16
+before the PV product (a 2**-9 relative error each, that does not shrink
+with |o| where a row's terms cancel); its error stays near 1e-3 of the
+row's RMS, well inside the tolerance.  The GLA time-mix is held to the
+reference's 2e-3.  The plain versions and the yardsticks run with TF32
+off.
 
 The last lines are the card's name and power limit, one JSON line with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -51,7 +94,6 @@ import argparse
 import ctypes
 import dataclasses
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -74,15 +116,41 @@ SMALL = {"jacobi-1d": ((32,), 4, (1, 2, 4)),
          "heat-3d": ((8, 6, 5), 2, (1, 2))}
 #: float32 operations a cell takes in one step of each update
 FLOPS_PER_CELL = {"jacobi-1d": 3, "jacobi-2d": 5, "heat-3d": 15}
+#: qwen2-7b's attention width (src/repro/configs/qwen2_7b.py), B = 1,
+#: S = 4096 (the train_4k sequence); S = 32768 is prefill_32k
+ATTN = dict(B=1, S=4096, H=28, KV=4, hd=128)
+ATTN_LONG_S = 32768
+#: rwkv6-1.6b's time-mix width (src/repro/configs/rwkv6_1_6b.py), B = 1
+GLA = dict(B=1, S=4096, H=32, hd=64)
+GLA_CHUNK = 64
+#: attention tolerances by dtype (see the docstring)
+ATTN_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2,
+            "torch.float16": 1e-2}
+GLA_TOL = dict(rtol=2e-3, atol=2e-3)
+#: small shapes of tests/test_kernels.py
+SMALL_FIFO = ((256, 32), (512, 64), (1024, 128), (8, 1))
+SMALL_ATTN = ((2, 128, 4, 2, 64, True, "float32"),
+              (1, 256, 8, 8, 128, True, "bfloat16"),
+              (2, 128, 4, 1, 64, False, "float32"),
+              (1, 128, 6, 3, 32, True, "float32"),
+              (1, 64, 2, 2, 128, True, "float16"))
+SMALL_GLA = ((2, 128, 3, 32, 32, 0.5), (1, 256, 2, 64, 64, 1.0),
+             (2, 128, 4, 16, 128, 1.5))
 REPLACES = {
     "ring_stencil": "src/repro/runtime/pallas_codegen.py:142",
     "addressable_step": "src/repro/runtime/pallas_codegen.py:190",
     "replay": "src/repro/runtime/pallas_backend.py:126",
+    "stencil_fifo": "src/repro/kernels/stencil_fifo/kernel.py:30",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29",
+    "gla_timemix": "src/repro/kernels/gla_timemix/kernel.py:23",
 }
 SOURCES = {
     "ring_stencil": "src/repro_torch/csrc/ring_stencil.cu",
     "addressable_step": "src/repro_torch/csrc/addressable_step.cu",
     "replay": "src/repro_torch/csrc/replay.cu",
+    "stencil_fifo": "src/repro_torch/csrc/stencil_fifo.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "gla_timemix": "src/repro_torch/csrc/gla_timemix.cu",
 }
 
 
@@ -93,6 +161,16 @@ def say(*parts) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def attention_err(got, want, tol: float) -> float:
+    """The largest |got - want| / (tol * |want| + tol * min(1, RMS of
+    want's row)), the row being one query position over heads and channels
+    of a (B, S, H, hd) output: at most 1 where every element is within
+    rtol = tol and the row-scaled atol (see the docstring)."""
+    w = want.float()
+    rms = w.square().mean(dim=(-2, -1), keepdim=True).sqrt().clamp(max=1.0)
+    return float(((got.float() - w).abs() / (tol * (w.abs() + rms))).max())
 
 
 def main() -> int:
@@ -114,6 +192,7 @@ def main() -> int:
 
     import repro_torch.core.polybench  # noqa: F401  (populate the registry)
     from repro_torch import device as h100
+    from repro_torch.bench import cuda_ms
     from repro_torch.core import Pattern, analyze
     from repro_torch.core.registry import get
     from repro_torch.kernels import cuda_lib
@@ -138,20 +217,6 @@ def main() -> int:
 
     def close(a, b) -> bool:
         return bool(torch.allclose(a, b, **TOL))
-
-    def cuda_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
 
     def device_ms(launch, reps: int) -> float:
         """Device time per launch: CUDA events around ``reps`` raw launches
@@ -186,7 +251,7 @@ def main() -> int:
     for k in kernels.values():
         k.launches = 0
     launches = {}                                 # (kernel, stencil) -> n
-    inputs, walls = {}, {}
+    inputs, walls, ring_out = {}, {}, {}
 
     def counted(stencil, fn):
         before = {n: k.launches for n, k in kernels.items()}
@@ -214,6 +279,7 @@ def main() -> int:
         t0 = time.perf_counter()
         y = counted(name, fused)
         fused_s = time.perf_counter() - t0
+        ring_out[name] = y
         want = c.program.ref(x, TSTEPS)
         check(tuple(y.shape) == shape and bool(torch.isfinite(y).all()),
               f"{name}: output not finite or of shape {tuple(y.shape)}")
@@ -423,6 +489,308 @@ def main() -> int:
             f"{row['device_ms']}, plain "
             f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} by "
             f"{row['bound_by']}, library {row['library_ms']})")
+
+    # ---------------------------------------------------------- phase 6 --
+    from repro_torch.bench import fig3_stencil
+    from repro_torch.kernels.flash_attention import (attention_op,
+                                                     chunked_attention)
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.gla_timemix import timemix_op, timemix_ref
+    from repro_torch.kernels.gla_timemix import kernel as gla
+    from repro_torch.kernels.stencil_fifo import jacobi_fifo_op
+    from repro_torch.kernels.stencil_fifo import kernel as sf
+
+    def zero_counts():
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+
+    x = inputs["jacobi-1d"]
+    want = cg.STENCIL_PROGRAMS["jacobi-1d"].ref(x, TSTEPS)
+    zero_counts()
+
+    def fig3_job():
+        y = x
+        for _ in range(TSTEPS // STEPS):
+            y = jacobi_fifo_op(y, STEPS, BLOCK)
+        return y
+
+    t0 = time.perf_counter()
+    y4 = fig3_job()
+    torch.cuda.synchronize()
+    walls["stencil_fifo"] = time.perf_counter() - t0
+    launches["stencil_fifo"] = cuda_lib.STENCIL_FIFO.launches
+    check(launches["stencil_fifo"] > 0, "stencil_fifo never launched")
+    check(tuple(y4.shape) == tuple(x.shape)
+          and bool(torch.isfinite(y4).all()), "fig3 job: output")
+    check(close(y4, ring_out["jacobi-1d"]), f"fig3 job vs the ring job: "
+          f"{max_err(y4, ring_out['jacobi-1d'])}")
+    check(bool(torch.allclose(y4, want, **TOL_LONG)),
+          f"fig3 job vs oracle: {max_err(y4, want)}")
+    say(f"phase 6 fig3 jacobi-1d N={x.shape[0]} T={TSTEPS} as "
+        f"{launches['stencil_fifo']} jacobi_fifo calls: "
+        f"{walls['stencil_fifo']:.4f} s host clock, vs oracle "
+        f"{max_err(y4, want):.3g}, vs the fifo-ring job "
+        f"{max_err(y4, ring_out['jacobi-1d']):.3g}")
+    zero_counts()
+    fig3_rows = fig3_stencil.rows(args.seed)
+    check(cuda_lib.STENCIL_FIFO.launches > 0
+          and cuda_lib.RING_STENCIL.launches > 0, "fig3 rows: no launch")
+    for row in fig3_rows:
+        bias = row["steps"] * 2 ** -22 * row["oracle_max_abs"]
+        check(row["err"] <= 1e-5 + bias, f"{row['name']}: err {row['err']}")
+        check(row.get("vs_handwritten_err", 0.0) <= 1e-5,
+              f"{row['name']}: vs hand-written "
+              f"{row.get('vs_handwritten_err')}")
+        say(f"phase 6 {row['name']}: {row['ms']:.4f} ms, err "
+            f"{row['err']:.3g}"
+            + (f", {row['vs_handwritten']:.3f}x of the hand-written time, "
+               f"outputs differ by {row['vs_handwritten_err']:.3g}"
+               if "vs_handwritten" in row else
+               f", traffic {row['naive_bytes']:.3g} B -> "
+               f"{row['fifo_bytes']:.3g} B"))
+
+    # ---------------------------------------------------------- phase 7 --
+    def randn(shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    def qkv(B, S, H, KV, hd, dtype):
+        return (randn((B, S, H, hd), dtype), randn((B, S, KV, hd), dtype),
+                randn((B, S, KV, hd), dtype))
+
+    attn = {}
+    for dt in (torch.bfloat16, torch.float32):
+        attn[(str(dt), ATTN["S"])] = qkv(**ATTN, dtype=dt)
+    long_shape = dict(ATTN, S=ATTN_LONG_S)
+    attn[(str(torch.bfloat16), ATTN_LONG_S)] = qkv(**long_shape,
+                                                    dtype=torch.bfloat16)
+    zero_counts()
+    attn_out = {}
+    for key, (q, k, v) in attn.items():
+        before = cuda_lib.FLASH_ATTENTION.launches
+        t0 = time.perf_counter()
+        attn_out[key] = attention_op(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        launches[key] = cuda_lib.FLASH_ATTENTION.launches - before
+    check(cuda_lib.FLASH_ATTENTION.launches == len(attn),
+          f"flash_attention launched {cuda_lib.FLASH_ATTENTION.launches} "
+          f"times for {len(attn)} calls")
+    for key, (q, k, v) in attn.items():
+        o = attn_out[key]
+        check(o.shape == q.shape and o.dtype == q.dtype
+              and bool(torch.isfinite(o).all()), f"attention {key}: output")
+        tol = ATTN_TOL[key[0]]
+        blk = 128 if key[1] == ATTN["S"] else 2048
+        plain = fa._flash_attention_plain(q, k, v, causal=True, bq=blk,
+                                          bk=blk)
+        errs[("flash_attention", key)] = max_err(o, plain)
+        worst = attention_err(o, plain, tol)
+        check(worst <= 1.0, f"attention {key} vs plain: "
+              f"{errs[('flash_attention', key)]}, {worst} of the tolerance")
+        msg = ""
+        if key[1] == ATTN_LONG_S:
+            ref = chunked_attention(q, k, v, causal=True, q_chunk=2048,
+                                    kv_chunk=2048)
+            worst_ref = attention_err(o, ref, tol)
+            check(worst_ref <= 1.0, f"attention {key} vs chunked ref: "
+                  f"{max_err(o, ref)}, {worst_ref} of the tolerance")
+            msg = (f", vs chunked ref {max_err(o, ref):.3g} "
+                   f"({worst_ref:.3g} of the tolerance)")
+            del ref
+        del plain
+        say(f"phase 7 attention {key[0]} S={key[1]} (qwen2-7b: H=28 KV=4 "
+            f"hd=128, causal): {walls[key]:.4f} s host clock, vs plain "
+            f"{errs[('flash_attention', key)]:.3g} ({worst:.3g} of the "
+            f"tolerance){msg}")
+
+    # ---------------------------------------------------------- phase 8 --
+    def gla_inputs(B, S, H, hd, decay_scale, dtype=torch.float32):
+        arrs = [rng.normal(size=(B, S, H, hd)) for _ in range(3)]
+        arrs.append(-np.exp(rng.normal(size=(B, S, H, hd)) * decay_scale))
+        arrs.append(rng.normal(size=(H, hd)))
+        return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+                for a in arrs]
+
+    gin = gla_inputs(**GLA, decay_scale=1.0)
+    zero_counts()
+    t0 = time.perf_counter()
+    yg = timemix_op(*gin, chunk=GLA_CHUNK)
+    torch.cuda.synchronize()
+    walls["gla_timemix"] = time.perf_counter() - t0
+    launches["gla_timemix"] = cuda_lib.GLA_TIMEMIX.launches
+    check(launches["gla_timemix"] > 0, "gla_timemix never launched")
+    check(yg.shape == gin[0].shape and bool(torch.isfinite(yg).all()),
+          "gla_timemix: output not finite")
+    plain = gla._gla_timemix_plain(*gin, chunk=GLA_CHUNK)
+    errs["gla_timemix"] = max_err(yg, plain)
+    check(bool(torch.allclose(yg, plain, **GLA_TOL)),
+          f"gla_timemix vs plain: {errs['gla_timemix']}")
+    ref = timemix_ref(*gin)
+    check(bool(torch.allclose(yg, ref, **GLA_TOL)),
+          f"gla_timemix vs sequential ref: {max_err(yg, ref)}")
+    say(f"phase 8 gla_timemix (rwkv6-1.6b: H=32 hd=64, S=4096, chunk "
+        f"{GLA_CHUNK}, decay scale 1.0): {walls['gla_timemix']:.4f} s host "
+        f"clock, vs plain {errs['gla_timemix']:.3g}, vs sequential ref "
+        f"{max_err(yg, ref):.3g}, |ref| max {float(ref.abs().max()):.3g}")
+    del plain, ref
+
+    # ---------------------------------------------------------- phase 9 --
+    for n, bn in SMALL_FIFO:
+        xs = randn((n,))
+        got, want = sf.jacobi_fifo(xs, bn, bn), sf._jacobi_fifo_plain(
+            xs, bn, bn)
+        check(bool(torch.allclose(got, want, rtol=max(1e-5, bn * 2 ** -22),
+                                  atol=1e-5)),
+              f"stencil_fifo ({n}, {bn}): {max_err(got, want)}")
+    for B, S, H, KV, hd, causal, dname in SMALL_ATTN:
+        dt = getattr(torch, dname)
+        q, k, v = qkv(B, S, H, KV, hd, dt)
+        got = fa.flash_attention(q, k, v, causal=causal, bq=64, bk=64)
+        want = fa._flash_attention_plain(q, k, v, causal=causal, bq=64,
+                                         bk=64)
+        tol = 1e-5 if dt == torch.float32 else ATTN_TOL[str(dt)]
+        check(bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol)),
+              f"attention {(B, S, H, KV, hd, causal, dname)}: "
+              f"{max_err(got, want)}")
+    for B, S, H, hd, chunk, scale in SMALL_GLA:
+        gs = gla_inputs(B, S, H, hd, scale)
+        got = gla.gla_timemix(*gs, chunk=chunk)
+        want = gla._gla_timemix_plain(*gs, chunk=chunk)
+        check(bool(torch.isfinite(got).all())
+              and bool(torch.allclose(got, want, **GLA_TOL)),
+              f"gla {(B, S, H, hd, chunk, scale)}: {max_err(got, want)}")
+    say("phase 9 small shapes: stencil_fifo, flash_attention and "
+        "gla_timemix match their plain versions")
+
+    # --------------------------------------------------------- phase 10 --
+    out4 = torch.empty_like(x)
+    n4 = x.shape[0]
+    bound_s, bound_by = h100.roofline_seconds(
+        2 * 4 * n4, FLOPS_PER_CELL["jacobi-1d"] * n4 * STEPS)
+    rows.append({
+        "name": "stencil_fifo[jacobi-1d]", "route": "cuda",
+        "source": SOURCES["stencil_fifo"],
+        "replaces": REPLACES["stencil_fifo"],
+        "launches": launches["stencil_fifo"],
+        "max_abs_err": max_err(sf.jacobi_fifo(x, STEPS, BLOCK),
+                               sf._jacobi_fifo_plain(x, STEPS, BLOCK)),
+        "ms": cuda_ms(lambda: sf.jacobi_fifo(x, STEPS, BLOCK), 20),
+        "device_ms": device_ms(lambda: cuda_lib.STENCIL_FIFO(
+            x.data_ptr(), out4.data_ptr(), n4, BLOCK, STEPS, stream), 50),
+        "plain_ms": cuda_ms(lambda: sf._jacobi_fifo_plain(x, STEPS, BLOCK),
+                            3),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "library_ms": None, "shape": [n4], "steps": STEPS, "block": BLOCK})
+    busy = (rows[-1]["device_ms"] * launches["stencil_fifo"] / 1e3
+            / walls["stencil_fifo"])
+    say(f"phase 10 stencil_fifo job T={TSTEPS}: "
+        f"{walls['stencil_fifo']:.4f} s host clock, "
+        f"{launches['stencil_fifo']} launches, device busy {busy:.4f} of it")
+
+    for key, (q, k, v) in attn.items():
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        long = S == ATTN_LONG_S
+        reps = 1 if long else 5
+        elem = q.element_size()
+        nbytes = elem * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        flops = 4 * hd * B * H * (S * (S + 1) // 2)   # causal pairs
+        peak = (h100.PEAK_FLOPS_FP32 if q.dtype == torch.float32
+                else h100.PEAK_FLOPS_BF16)
+        bound_s, bound_by = h100.roofline_seconds(nbytes, flops, peak)
+        o_raw = torch.empty_like(q)
+        scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
+
+        def raw():
+            cuda_lib.FLASH_ATTENTION(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o_raw.data_ptr(),
+                B, S, H, KV, hd, 1, scale, fa._DTYPES[q.dtype], stream)
+
+        # the yardstick: SDPA with k and v repeated to H heads so that head
+        # h reads kv head h % KV (`repeat`, as the reference groups heads)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.transpose(1, 2).repeat(1, H // KV, 1, 1).contiguous()
+        vt = v.transpose(1, 2).repeat(1, H // KV, 1, 1).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        lib_out = sdpa().transpose(1, 2)
+        lib_err = max_err(lib_out, attn_out[key])
+        # a sanity check that the yardstick computes the same function (a
+        # wrong head grouping is off by about the row's RMS); SDPA's kernels
+        # may round the probabilities to bf16, float32 products to TF32 and
+        # scale q in another precision
+        lib_tol = 2e-2 if q.dtype == torch.float32 else 5e-2
+        lib_worst = attention_err(lib_out, attn_out[key], lib_tol)
+        check(lib_worst <= 1.0, f"SDPA yardstick {key}: err {lib_err}, "
+              f"{lib_worst} of the tolerance")
+        del lib_out
+        blk = 128 if not long else 2048
+        rows.append({
+            "name": f"flash_attention[{key[0].split('.')[1]} S={S}]",
+            "route": "cuda", "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"],
+            "launches": launches[key],
+            "max_abs_err": errs[("flash_attention", key)],
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                          reps),
+            "device_ms": device_ms(raw, reps),
+            "plain_ms": cuda_ms(lambda: fa._flash_attention_plain(
+                q, k, v, causal=True, bq=blk, bk=blk), 1 if long else 2),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": cuda_ms(sdpa, 3 if long else 20),
+            "library": "F.scaled_dot_product_attention",
+            "library_max_abs_err": lib_err,
+            "shape": list(q.shape), "kv_heads": KV, "causal": True,
+            "dtype": key[0], "flops": flops, "bytes": nbytes})
+        del qt, kt, vt, o_raw
+
+    B, S, H, hd = gin[0].shape
+    C = GLA_CHUNK
+    # the function's least work, that of the sequential recurrence (the
+    # chunkwise form does more): per step and (b, h), r_t S (2 hd^2), the
+    # state's decay and k_t v_t^T added (3 hd^2), the bonus (r_t u k_t) v_t
+    # (4 hd) and exp(logw_t) (hd)
+    gla_flops = B * H * S * (5 * hd * hd + 5 * hd)
+    gla_bytes = 4 * (5 * B * S * H * hd + H * hd)
+    bound_s, bound_by = h100.roofline_seconds(gla_bytes, gla_flops)
+    og = torch.empty_like(gin[0])
+    rows.append({
+        "name": "gla_timemix[rwkv6-1.6b f32 S=4096]", "route": "cuda",
+        "source": SOURCES["gla_timemix"], "replaces": REPLACES["gla_timemix"],
+        "launches": launches["gla_timemix"],
+        "max_abs_err": errs["gla_timemix"],
+        "ms": cuda_ms(lambda: gla.gla_timemix(*gin, chunk=C), 10),
+        "device_ms": device_ms(lambda: cuda_lib.GLA_TIMEMIX(
+            *(t.data_ptr() for t in gin), og.data_ptr(), B, S, H, hd, C, 0,
+            stream), 10),
+        "plain_ms": cuda_ms(lambda: gla._gla_timemix_plain(*gin, chunk=C),
+                            3),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "library_ms": None, "shape": list(gin[0].shape), "chunk": C,
+        "flops": gla_flops, "bytes": gla_bytes})
+    for row in rows[-5:]:
+        say(f"phase 10 {row['name']}: {row['ms']:.4f} ms (device "
+            f"{row['device_ms']}, plain {row['plain_ms']:.4f}, bound "
+            f"{row['bound_ms']:.5f} by {row['bound_by']}, library "
+            f"{row['library_ms']})")
+    # the redesign order: first the kernels slower than their library call,
+    # the largest factor first; then the rest by launches x (time - bound)
+    for row in rows:
+        row["excess_ms"] = row["launches"] * (row["ms"] - row["bound_ms"])
+        if row["library_ms"] is not None:
+            row["vs_library"] = row["ms"] / row["library_ms"]
+    order = sorted(rows, key=lambda r: (-r.get("vs_library", 0.0)
+                                        if r.get("vs_library", 0.0) > 1
+                                        else 0.0, -r["excess_ms"]))
+    say("redesign order: " + "; ".join(
+        f"{r['name']} " + (f"{r['vs_library']:.2f}x library, "
+                           if r.get("vs_library", 0.0) > 1 else "")
+        + f"{r['launches']} x (time - bound) = {r['excess_ms']:.4f} ms"
+        for r in order))
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -9,11 +9,15 @@ kernel's roofline bound is computed against.
 """
 HBM_BW = 3.35e12                   # B/s, device memory
 PEAK_FLOPS_FP32 = 67e12            # FLOP/s outside the tensor cores
+PEAK_FLOPS_BF16 = 989e12           # FLOP/s, bf16/f16 on the tensor cores
 
 
-def roofline_seconds(bytes_moved: float, flops: float):
+def roofline_seconds(bytes_moved: float, flops: float,
+                     peak_flops: float = PEAK_FLOPS_FP32):
     """The least time the card could take for work that must move
-    ``bytes_moved`` through device memory and do ``flops`` float32
-    operations: the larger of the two, and which one bounds it."""
-    move, compute = bytes_moved / HBM_BW, flops / PEAK_FLOPS_FP32
+    ``bytes_moved`` through device memory and do ``flops`` operations at
+    ``peak_flops`` (float32 work against `PEAK_FLOPS_FP32`; work on bf16 or
+    f16 inputs against `PEAK_FLOPS_BF16`, the rate the card offers for
+    them): the larger of the two, and which one bounds it."""
+    move, compute = bytes_moved / HBM_BW, flops / peak_flops
     return (move, "bytes") if move >= compute else (compute, "operations")

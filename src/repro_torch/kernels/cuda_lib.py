@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -127,4 +127,17 @@ ADDRESSABLE_STEP = CudaKernel("addressable_step.cu", "addressable_step_f32",
 REPLAY = CudaKernel("replay.cu", "replay_i32",
                     [_P, _P, _P, _I, _P, _I, _I, _P, _P])
 
-KERNELS = (RING_STENCIL, ADDRESSABLE_STEP, REPLAY)
+#: kernel 4 — the hand-written Fig. 3 jacobi-1d (`csrc/stencil_fifo.cu`)
+STENCIL_FIFO = CudaKernel("stencil_fifo.cu", "stencil_fifo_f32",
+                          [_P, _P, _I, _I, _I, _P])
+#: kernel 5 — blocked GQA flash attention (`csrc/flash_attention.cu`)
+FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_fwd",
+                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _P])
+#: kernel 6 — chunkwise GLA/RWKV-6 time-mix (`csrc/gla_timemix.cu`)
+GLA_TIMEMIX = CudaKernel("gla_timemix.cu", "gla_timemix_fwd",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P])
+
+KERNELS = (RING_STENCIL, ADDRESSABLE_STEP, REPLAY, STENCIL_FIFO,
+           FLASH_ATTENTION, GLA_TIMEMIX)

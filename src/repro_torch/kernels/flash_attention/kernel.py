@@ -1,0 +1,112 @@
+"""Blocked GQA flash attention with an online softmax.
+
+The port of `repro.kernels.flash_attention.kernel`.  q (B,S,H,hd) is
+scaled by hd^-½ in its own dtype, then scores, the running max and sum and
+the accumulator are float32; query head ``h`` reads kv head ``h % KV``;
+kv blocks wholly above the diagonal are skipped; scores above it are
+masked to ``NEG``; the output is ``acc / max(l, 1e-30)`` in q's dtype.
+
+`flash_attention` runs ``csrc/flash_attention.cu`` on a CUDA tensor and
+`_flash_attention_plain` on a CPU one.  The plain version walks the
+reference kernel's grid in ``bq × bk`` blocks and keeps the probabilities
+in float32, as the kernel does (`ref.chunked_attention` casts them to
+``v.dtype``, as the reference's oracle does).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import cuda_lib
+from .ref import NEG, _scaled
+
+#: dtype → the kernel's dtype code
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: head widths the kernel is instantiated for
+_HEAD_DIMS = (32, 64, 128)
+
+
+def _check(q, k, v, bq: int, bk: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention takes q (B,S,H,hd) and k, v "
+                         f"(B,S,KV,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) or H % k.shape[2]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (need KV | H)")
+    if S % bq or S % bk:
+        raise ValueError(f"S = {S} must be a multiple of bq = {bq} and "
+                         f"bk = {bk}")
+
+
+def _flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
+                           bk: int = 128, scale=None) -> torch.Tensor:
+    """The plain PyTorch version: the reference kernel's (q block, kv block)
+    grid, with (m, l, acc) carried across the kv blocks, for all (B, H) at
+    once."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    heads = torch.arange(H, device=q.device) % KV
+    qt = _scaled(q, scale).transpose(1, 2).float()        # (B, H, S, hd)
+    kt = k.transpose(1, 2)[:, heads].float()              # (B, H, S, hd)
+    vt = v.transpose(1, 2)[:, heads].float()
+    out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
+    for qi in range(S // bq):
+        qb = qt[:, :, qi * bq:(qi + 1) * bq]
+        m = torch.full((B, H, bq, 1), NEG, device=q.device)
+        l = torch.zeros((B, H, bq, 1), device=q.device)
+        acc = torch.zeros((B, H, bq, hd), device=q.device)
+        for kj in range(S // bk):
+            if causal and kj * bk > qi * bq + bq - 1:
+                continue                      # wholly above the diagonal
+            s = qb @ kt[:, :, kj * bk:(kj + 1) * bk].transpose(-1, -2)
+            if causal:
+                qpos = qi * bq + torch.arange(bq, device=q.device)[:, None]
+                kpos = kj * bk + torch.arange(bk, device=q.device)[None, :]
+                s = torch.where(qpos >= kpos, s, NEG)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p @ vt[:, :, kj * bk:(kj + 1) * bk]
+            m = m_new
+        out[:, :, qi * bq:(qi + 1) * bq] = acc / torch.clamp(l, min=1e-30)
+    return out.to(q.dtype).transpose(1, 2)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
+                    bk: int = 128, scale=None) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd) in q's dtype.
+    Requires ``S % bq == S % bk == 0`` (ValueError otherwise).  Kernel 5,
+    ``csrc/flash_attention.cu``, on CUDA tensors (float32, bf16 or f16, hd
+    32, 64 or 128; its own tiles are 64 × 64); `_flash_attention_plain` on
+    CPU ones."""
+    _check(q, k, v, bq, bk)
+    if q.device.type == "cpu":
+        return _flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, S, H, hd = q.shape
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: the kernel takes one of "
+                         f"{sorted(map(str, _DTYPES))} for q, k and v, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes hd in "
+                         f"{_HEAD_DIMS}, got {hd}")
+    if not (k.device == v.device == q.device):
+        raise ValueError("flash_attention: q, k and v on different devices")
+    scale = hd ** -0.5 if scale is None else scale
+    scale = float(torch.tensor(scale, dtype=q.dtype))     # as JAX rounds it
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        cuda_lib.FLASH_ATTENTION(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, k.shape[2], hd, int(causal), scale, _DTYPES[q.dtype],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    return out

@@ -1,7 +1,8 @@
 """The port's analysis path (`src/repro_torch/`) against the JAX package.
 
 1. Isolation: the port imports neither jax nor `repro`; a subprocess with
-   both blocked runs the whole main path on the CPU.
+   both blocked runs the whole main path, and the Fig. 3, attention and
+   time-mix entry points, on the CPU.
 2. Report parity: on all 15 PolyBench kernels,
    ``classify → fifoize → size → plan → validate → report`` gives the same
    `AnalysisReport` in both packages (apart from the cache counters).
@@ -82,6 +83,22 @@ got = c(x, 4, 4)
 assert float((got - c.program.ref(got.new_tensor(x), 4)).abs().max()) < 1e-5
 v = a.validate(backend="cuda", device="cpu").validation
 assert (v.replays, v.rejections) == (14, 3), v.summary()
+
+import torch
+import repro_torch.bench.fig3_stencil
+from repro_torch.kernels.flash_attention import attention_op
+from repro_torch.kernels.gla_timemix import timemix_op
+from repro_torch.kernels.stencil_fifo import jacobi_fifo_op
+
+rng = np.random.default_rng(1)
+t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
+    np.float32))
+assert jacobi_fifo_op(t(32), 4, 4).shape == (32,)
+q, k = t(1, 128, 4, 16), t(1, 128, 2, 16)
+assert attention_op(q, k, k, causal=True, use_kernel=True).shape == q.shape
+r = t(1, 32, 2, 16)
+assert timemix_op(r, r, r, -r.abs(), t(2, 16), chunk=16,
+                  use_kernel=True).shape == r.shape
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
 assert not leaked, leaked

@@ -15,6 +15,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.ppn import PPN, Channel, Process  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    _flash_attention_plain, flash_attention)
+from repro_torch.kernels.gla_timemix.kernel import (  # noqa: E402
+    _gla_timemix_plain, gla_timemix)
+from repro_torch.kernels.stencil_fifo.kernel import (  # noqa: E402
+    _jacobi_fifo_plain, jacobi_fifo)
 from repro_torch.core.schedule import AffineSchedule  # noqa: E402
 from repro_torch.runtime import trace_channel  # noqa: E402
 from repro_torch.runtime.cuda_backend import (  # noqa: E402
@@ -88,3 +94,96 @@ def test_replay_kernel_matches_plain_version(reads, cuda_device):
             got = replay_events(*(a.to(cuda_device) for a in args),
                                 ring_size, order_op)
             assert got.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bn", [(8, 1), (64, 2), (256, 32), (1024, 128),
+                                  (4096, 2048)])
+def test_jacobi_fifo_kernel_matches_plain_version(n, bn, cuda_device):
+    """Block 1 (the FIFO levels broadcast one cell) and a block wider than
+    the CTA's 1024 threads included.  The kernel divides by 3 exactly; the
+    plain version on the card multiplies by PyTorch's rounded reciprocal,
+    3.0e-8 too large relative to 1/3, a bias that compounds over the steps
+    (1.8e-5 at 2048 steps, above 1e-5).  So the tolerance is rtol =
+    steps * 2**-22 (`chip_smoke.py`'s TOL_LONG rule), at least 1e-5."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(n)
+                         .astype(np.float32)).to(cuda_device)
+    got = jacobi_fifo(x, bn, bn)
+    want = _jacobi_fifo_plain(x, bn, bn)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, rtol=max(1e-5, bn * 2 ** -22),
+                          atol=1e-5)
+
+
+#: `tests/test_kernels.py::test_flash_attention_sweep`'s cases, plus a
+#: ragged causal case (S = 96: the kernel's last 64-row tile is partial)
+ATTENTION_CASES = [
+    (2, 128, 4, 2, 64, True, torch.float32, 1e-5),
+    (1, 256, 8, 8, 128, True, torch.bfloat16, 2e-2),
+    (2, 128, 4, 1, 64, False, torch.float32, 1e-5),
+    (1, 128, 6, 3, 32, True, torch.float32, 1e-5),
+    (1, 64, 2, 2, 128, True, torch.float16, 1e-2),
+    (1, 96, 4, 2, 64, True, torch.float32, 1e-5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,dt,tol", ATTENTION_CASES)
+def test_flash_attention_kernel_matches_plain_version(B, S, H, KV, hd, causal,
+                                                      dt, tol, cuda_device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dt)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    got = flash_attention(q, k, v, causal=causal, bq=32, bk=32)
+    want = _flash_attention_plain(q, k, v, causal=causal, bq=32, bk=32)
+    torch.cuda.synchronize()
+    assert got.dtype == dt
+    assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,chunk,decay_scale,dt", [
+    (2, 128, 3, 32, 32, 0.5, torch.float32),
+    (1, 256, 2, 64, 64, 1.0, torch.float32),
+    (2, 128, 4, 16, 128, 1.5, torch.float32),
+    (1, 128, 2, 64, 64, 1.0, torch.bfloat16),
+])
+def test_gla_timemix_kernel_matches_plain_version(B, S, H, hd, chunk,
+                                                  decay_scale, dt,
+                                                  cuda_device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    arrs = [rng.normal(size=(B, S, H, hd)) for _ in range(3)]
+    arrs.append(-np.exp(rng.normal(size=(B, S, H, hd)) * decay_scale))
+    arrs.append(rng.normal(size=(H, hd)))
+    r, k, v, logw, u = (torch.from_numpy(a.astype(np.float32))
+                        .to(cuda_device, dt) for a in arrs)
+    got = gla_timemix(r, k, v, logw, u, chunk=chunk)
+    want = _gla_timemix_plain(r, k, v, logw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    # float32: the reference's 2e-3; bf16: the outputs are rounded to bf16
+    # (a relative step of up to 2**-7) from float32 sums taken in another
+    # order, so the reference's bf16 attention tolerance, 2e-2
+    tol = 2e-3 if dt == torch.float32 else 2e-2
+    assert got.dtype == dt and bool(torch.isfinite(got).all())
+    assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_oversized_shared_memory_is_refused(cuda_device):
+    """A tile whose shared memory passes what a CTA may hold (227 KB) is
+    refused at its launch, and the refusal does not leak into the next
+    launch: the wrappers have no shared-memory check of their own."""
+    x = torch.zeros(30000, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        jacobi_fifo(x, 30000, 30000)              # 720 KB
+    r = torch.zeros((1, 256, 1, 128), device=cuda_device)
+    u = torch.zeros((1, 128), device=cuda_device)
+    with pytest.raises(RuntimeError):
+        gla_timemix(r, r, r, r, u, chunk=256)     # 990 KB
+    small = torch.ones(64, device=cuda_device)
+    torch.cuda.synchronize()
+    assert torch.allclose(jacobi_fifo(small, 2, 2),
+                          _jacobi_fifo_plain(small, 2, 2), **ATOL)

@@ -1,0 +1,185 @@
+"""The port's kernels 4–6 (`repro_torch.kernels`) against the JAX package's.
+
+On the CPU each port function runs its plain PyTorch version; the JAX
+kernels run in interpret mode, as `tests/test_kernels.py` runs them.  The
+same numpy inputs go to both, and the tolerances are the reference's:
+
+1. The hand-written Fig. 3 stencil (`jacobi_fifo`) equals the JAX kernel
+   and the generated ring, and raises where the reference asserts.
+2. Flash attention's plain version equals the JAX kernel on the five
+   `test_flash_attention_sweep` cases, the chunked oracles agree, and the
+   result does not depend on the block shape.
+3. The GLA time-mix's plain version and the sequential oracle equal the
+   JAX ones on the three reference cases, the fast-decay case included.
+4. `attention_op` and `timemix_op` dispatch by device.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jnp = pytest.importorskip("jax.numpy")
+
+import repro_torch.core.polybench  # noqa: F401,E402  (populate the registry)
+from repro.kernels import flash_attention as jax_fa  # noqa: E402
+from repro.kernels import gla_timemix as jax_gla  # noqa: E402
+from repro.kernels import stencil_fifo as jax_sf  # noqa: E402
+from repro_torch.core import analyze  # noqa: E402
+from repro_torch.core.registry import get  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_op, attention_ref, flash_attention)
+from repro_torch.kernels.gla_timemix import (  # noqa: E402
+    gla_timemix, timemix_op, timemix_ref)
+from repro_torch.kernels.stencil_fifo import (  # noqa: E402
+    jacobi_1d, jacobi_fifo, jacobi_fifo_op, jacobi_naive_op)
+
+ATOL = dict(rtol=1e-5, atol=1e-5)
+_JNP_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+               torch.float16: jnp.float16}
+
+
+def both(a: np.ndarray, dtype=torch.float32):
+    """``a`` as a torch tensor and as a jax array, both of ``dtype``."""
+    return (torch.from_numpy(a).to(dtype),
+            jnp.asarray(a, _JNP_DTYPES[dtype]))
+
+
+def as_np(a) -> np.ndarray:
+    """A torch tensor or jax array as float32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+# ---------------------------------------------------------- kernel 4 ------
+
+@pytest.mark.parametrize("n,bn", [(256, 32), (512, 64), (1024, 128)])
+def test_jacobi_fifo_matches_jax_kernel(n, bn):
+    x_t, x_j = both(np.random.default_rng(0).normal(size=(n,)).astype(
+        np.float32))
+    got = jacobi_fifo(x_t, steps=bn, block=bn)
+    want = jax_sf.jacobi_fifo(x_j, steps=bn, block=bn)
+    np.testing.assert_allclose(as_np(got), as_np(want), **ATOL)
+    np.testing.assert_allclose(as_np(got), as_np(jacobi_1d(x_t, bn)), **ATOL)
+
+
+def test_jacobi_fifo_matches_generated_ring():
+    """`tests/test_pallas.py::test_generated_vs_handwritten_jacobi` on the
+    port: the hand-written kernel and `compile(backend="cuda")`'s ring at
+    the same tiling."""
+    c = (analyze(get("jacobi-1d")).classify().fifoize().size().plan()
+         .compile(backend="cuda", device="cpu"))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(64).astype(
+        np.float32))
+    got = c(x, 16, 16)
+    hand = jacobi_fifo_op(x, steps=16, block=16)
+    assert torch.allclose(got, hand, **ATOL)
+    assert torch.equal(jacobi_naive_op(x, 16), jacobi_1d(x, 16))
+
+
+@pytest.mark.parametrize("n,steps,block", [(64, 8, 16), (60, 16, 16),
+                                           (64, 0, 0)])
+def test_jacobi_fifo_rejects_what_the_reference_asserts(n, steps, block):
+    with pytest.raises(ValueError):
+        jacobi_fifo(torch.zeros(n), steps=steps, block=block)
+
+
+# ---------------------------------------------------------- kernel 5 ------
+
+def attention_inputs(B, S, H, KV, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    shapes = ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    return [both(rng.normal(size=s).astype(np.float32), dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,dt,tol", [
+    (2, 128, 4, 2, 64, True, torch.float32, 1e-5),
+    (1, 256, 8, 8, 128, True, torch.bfloat16, 2e-2),
+    (2, 128, 4, 1, 64, False, torch.float32, 1e-5),
+    (1, 128, 6, 3, 32, True, torch.float32, 1e-5),
+    (1, 64, 2, 2, 128, True, torch.float16, 1e-2),
+])
+def test_flash_attention_matches_jax_kernel(B, S, H, KV, hd, causal, dt,
+                                            tol):
+    """`tests/test_kernels.py::test_flash_attention_sweep`'s cases: the
+    port's plain version against the JAX kernel and both oracles, at the
+    reference's tolerances."""
+    (q, qj), (k, kj), (v, vj) = attention_inputs(B, S, H, KV, hd, dt, 7)
+    got = flash_attention(q, k, v, causal=causal, bq=64, bk=64)
+    assert got.dtype == dt and got.shape == (B, S, H, hd)
+    want = jax_fa.flash_attention(qj, kj, vj, causal=causal, bq=64, bk=64)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=tol, rtol=tol)
+    ref = attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(as_np(ref), as_np(
+        jax_fa.attention_ref(qj, kj, vj, causal=causal)), atol=tol, rtol=tol)
+    np.testing.assert_allclose(as_np(got), as_np(ref), atol=tol, rtol=tol)
+
+
+def test_flash_attention_block_shapes():
+    """`tests/test_kernels.py::test_flash_attention_block_shapes` on the
+    port: the result does not depend on the block shape."""
+    (q, _), (k, _), (v, _) = attention_inputs(1, 256, 4, 2, 64,
+                                              torch.float32, 3)
+    outs = [flash_attention(q, k, v, causal=True, bq=bq, bk=bk)
+            for bq, bk in ((32, 32), (64, 128), (128, 64), (256, 256))]
+    for o in outs[1:]:
+        assert torch.allclose(outs[0], o, **ATOL)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, bq=96, bk=64)
+
+
+# ---------------------------------------------------------- kernel 6 ------
+
+def gla_inputs(B, S, H, hd, decay_scale, seed=11):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=(B, S, H, hd)) for _ in range(3)]
+    arrs.append(-np.exp(rng.normal(size=(B, S, H, hd)) * decay_scale))
+    arrs.append(rng.normal(size=(H, hd)))
+    return [both(a.astype(np.float32)) for a in arrs]
+
+
+@pytest.mark.parametrize("B,S,H,hd,chunk,decay_scale", [
+    (2, 128, 3, 32, 32, 0.5),
+    (1, 256, 2, 64, 64, 1.0),     # fast decays: overflow regression case
+    (2, 128, 4, 16, 128, 1.5),
+])
+def test_gla_timemix_matches_jax(B, S, H, hd, chunk, decay_scale):
+    """`tests/test_kernels.py::test_gla_timemix_matches_sequential`'s cases:
+    the port's plain version and sequential oracle against the JAX kernel
+    and oracle, within the reference's 2e-3."""
+    pairs = gla_inputs(B, S, H, hd, decay_scale)
+    t_in = [t for t, _ in pairs]
+    j_in = [j for _, j in pairs]
+    got = gla_timemix(*t_in, chunk=chunk)
+    assert bool(torch.isfinite(got).all())
+    want = jax_gla.gla_timemix(*j_in, chunk=chunk)
+    ref = timemix_ref(*t_in)
+    tol = dict(atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(as_np(got), as_np(want), **tol)
+    np.testing.assert_allclose(as_np(ref), as_np(jax_gla.timemix_ref(*j_in)),
+                               **tol)
+    np.testing.assert_allclose(as_np(got), as_np(ref), **tol)
+
+
+def test_gla_timemix_rejects_bad_shapes():
+    t_in = [t for t, _ in gla_inputs(1, 96, 2, 16, 0.5)]
+    with pytest.raises(ValueError):
+        gla_timemix(*t_in, chunk=64)
+    with pytest.raises(ValueError):
+        gla_timemix(*t_in[:4], t_in[4][:1], chunk=32)
+
+
+# ---------------------------------------------------------- dispatch ------
+
+def test_ops_dispatch_on_cpu():
+    """On a CPU tensor ``use_kernel=None`` runs the oracle, ``True`` the
+    kernel's plain version."""
+    (q, _), (k, _), (v, _) = attention_inputs(1, 128, 4, 2, 32,
+                                              torch.float32, 5)
+    assert torch.equal(attention_op(q, k, v), attention_ref(q, k, v))
+    assert torch.equal(attention_op(q, k, v, causal=False, use_kernel=True),
+                       flash_attention(q, k, v, causal=False))
+    t_in = [t for t, _ in gla_inputs(1, 128, 2, 16, 0.5)]
+    assert torch.equal(timemix_op(*t_in), timemix_ref(*t_in))
+    assert torch.equal(timemix_op(*t_in, chunk=32, use_kernel=True),
+                       gla_timemix(*t_in, chunk=32))
