@@ -10,14 +10,20 @@ kernel's roofline bound is computed against.
 HBM_BW = 3.35e12                   # B/s, device memory
 PEAK_FLOPS_FP32 = 67e12            # FLOP/s outside the tensor cores
 PEAK_FLOPS_BF16 = 989e12           # FLOP/s, bf16/f16 on the tensor cores
+PEAK_FLOPS_TF32 = 495e12           # FLOP/s, TF32 on the tensor cores
+# float32 products at float32's accuracy: the faster of the CUDA cores and
+# three TF32 passes on the tensor cores (hi*hi + hi*lo + lo*hi)
+PEAK_FLOPS_FP32_PRODUCTS = max(PEAK_FLOPS_FP32, PEAK_FLOPS_TF32 / 3)
 
 
 def roofline_seconds(bytes_moved: float, flops: float,
                      peak_flops: float = PEAK_FLOPS_FP32):
     """The least time the card could take for work that must move
     ``bytes_moved`` through device memory and do ``flops`` operations at
-    ``peak_flops`` (float32 work against `PEAK_FLOPS_FP32`; work on bf16 or
-    f16 inputs against `PEAK_FLOPS_BF16`, the rate the card offers for
-    them): the larger of the two, and which one bounds it."""
+    ``peak_flops`` (float32 work against `PEAK_FLOPS_FP32`, float32
+    products that the tensor cores can take against
+    `PEAK_FLOPS_FP32_PRODUCTS`; work on bf16 or f16 inputs against
+    `PEAK_FLOPS_BF16`, the rate the card offers for them): the larger of the
+    two, and which one bounds it."""
     move, compute = bytes_moved / HBM_BW, flops / peak_flops
     return (move, "bytes") if move >= compute else (compute, "operations")

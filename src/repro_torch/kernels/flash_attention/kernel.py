@@ -9,8 +9,10 @@ masked to ``NEG``; the output is ``acc / max(l, 1e-30)`` in q's dtype.
 `flash_attention` runs ``csrc/flash_attention.cu`` on a CUDA tensor and
 `_flash_attention_plain` on a CPU one.  The plain version walks the
 reference kernel's grid in ``bq × bk`` blocks and keeps the probabilities
-in float32, as the kernel does (`ref.chunked_attention` casts them to
-``v.dtype``, as the reference's oracle does).
+in float32, as the Pallas kernel does.  The CUDA kernel rounds them to
+bf16 or f16 for its tensor-core product on those inputs, as
+`ref.chunked_attention` (the reference's oracle) casts them to
+``v.dtype``.
 """
 from __future__ import annotations
 
@@ -39,6 +41,13 @@ def _check(q, k, v, bq: int, bk: int) -> None:
     if S % bq or S % bk:
         raise ValueError(f"S = {S} must be a multiple of bq = {bq} and "
                          f"bk = {bk}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernel's tensor maps and
+    float4 loads need (a view may start at any element)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
@@ -82,8 +91,8 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd) in q's dtype.
     Requires ``S % bq == S % bk == 0`` (ValueError otherwise).  Kernel 5,
     ``csrc/flash_attention.cu``, on CUDA tensors (float32, bf16 or f16, hd
-    32, 64 or 128; its own tiles are 64 × 64); `_flash_attention_plain` on
-    CPU ones."""
+    32, 64 or 128; its own q and kv tiles are 128 rows);
+    `_flash_attention_plain` on CPU ones."""
     _check(q, k, v, bq, bk)
     if q.device.type == "cpu":
         return _flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk,
@@ -102,7 +111,7 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
         raise ValueError("flash_attention: q, k and v on different devices")
     scale = hd ** -0.5 if scale is None else scale
     scale = float(torch.tensor(scale, dtype=q.dtype))     # as JAX rounds it
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         cuda_lib.FLASH_ATTENTION(

@@ -115,8 +115,11 @@ def test_jacobi_fifo_kernel_matches_plain_version(n, bn, cuda_device):
                           atol=1e-5)
 
 
-#: `tests/test_kernels.py::test_flash_attention_sweep`'s cases, plus a
-#: ragged causal case (S = 96: the kernel's last 64-row tile is partial)
+#: `tests/test_kernels.py::test_flash_attention_sweep`'s cases; ragged
+#: causal cases (S = 96 and 64, below the kernel's 128-row tiles; B = 2 at
+#: S = 192, where a tile past S must not read the next sequence's rows);
+#: qwen2-7b's 7:1 grouping; bf16 and f16 at every head width; non-causal
+#: bf16 (the tensor-core path)
 ATTENTION_CASES = [
     (2, 128, 4, 2, 64, True, torch.float32, 1e-5),
     (1, 256, 8, 8, 128, True, torch.bfloat16, 2e-2),
@@ -124,6 +127,16 @@ ATTENTION_CASES = [
     (1, 128, 6, 3, 32, True, torch.float32, 1e-5),
     (1, 64, 2, 2, 128, True, torch.float16, 1e-2),
     (1, 96, 4, 2, 64, True, torch.float32, 1e-5),
+    (2, 192, 4, 2, 64, True, torch.bfloat16, 2e-2),
+    (2, 192, 4, 2, 128, True, torch.float16, 1e-2),
+    (2, 192, 4, 2, 64, True, torch.float32, 1e-5),
+    (1, 128, 28, 4, 128, True, torch.bfloat16, 2e-2),
+    (1, 128, 28, 4, 128, True, torch.float32, 1e-5),
+    (1, 128, 4, 2, 32, True, torch.bfloat16, 2e-2),
+    (1, 128, 4, 2, 64, True, torch.bfloat16, 2e-2),
+    (1, 128, 4, 2, 32, True, torch.float16, 1e-2),
+    (1, 128, 4, 2, 64, True, torch.float16, 1e-2),
+    (2, 256, 4, 2, 128, False, torch.bfloat16, 2e-2),
 ]
 
 
@@ -140,6 +153,24 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, KV, hd, causal,
     want = _flash_attention_plain(q, k, v, causal=causal, bq=32, bk=32)
     torch.cuda.synchronize()
     assert got.dtype == dt
+    assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_unaligned_views(dt, cuda_device):
+    """Views that start one element into their storage: the tensor maps and
+    float4 loads need 16-byte aligned bases, so the wrapper copies them."""
+    rng = np.random.default_rng(3)
+    flat = [torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
+            .to(cuda_device, dt) for n in (128 * 4 * 64, 128 * 2 * 64,
+                                           128 * 2 * 64)]
+    q, k, v = (f[1:].view(1, 128, h, 64) for f, h in zip(flat, (4, 2, 2)))
+    assert q.data_ptr() % 16
+    got = flash_attention(q, k, v, causal=True)
+    want = _flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dt == torch.float32 else 2e-2
     assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
 
 
