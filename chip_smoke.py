@@ -16,19 +16,27 @@ failure:
    (N = 4000, 2800, 200; TSTEPS = 1000), ``analyze(get(k)).classify()
    .fifoize().size().plan().compile(backend="cuda")`` must pick the fused
    ring; T = 1000 runs as 125 chained calls with a time tile of
-   steps = block = 8 and must match the PyTorch oracle on the card.  The
-   same job forced to ``mode="addressable"`` (1000 launches) must too.
+   steps = block = 8 and must match the PyTorch oracle on the card; each
+   ring launch's shape (CTAs in one cluster or a cooperative grid,
+   threads) is printed, and on jacobi-2d and heat-3d it must span more
+   than one CTA.  The same job forced to ``mode="addressable"`` must
+   match too, in exactly 1000 launches queued from C by one call.
    Then ``validate(backend="cuda")`` must give 14/17/35 replays and 3/8/12
    negative rejections, and a wrong plan must raise.  The counts are read
    here: every kernel must have launched.
 3. The undersized-ring and narrowed-halo injections must diverge from the
    oracle, at a small size.
 4. Each kernel is held against its plain PyTorch version on the same
-   inputs: at small shapes (block = 1 and the injections included) and at
-   the main path's shapes.
+   inputs: at small shapes (block = 1 and the injections included, the
+   ring in each launch mode, its rows over several CTAs; the addressable
+   job entry point against chained plain steps) and at the main path's
+   shapes.  A ring cluster or grid that cannot be placed must raise and
+   leave the next launch clean.
 5. Each kernel is timed with CUDA events at the main path's shapes, beside
    its plain version, its bound and, where one PyTorch call computes the
-   same function, that call.
+   same function, that call.  The addressable step's call and its library
+   call are timed in turns over five rounds (min / median / max), and its
+   1000-step job also as a replayed CUDA graph.
 6. Fig. 3, with the counts set to 0 first: jacobi-1d at EXTRALARGE
    (N = 4000, T = 1000) as 125 chained ``jacobi_fifo_op`` calls at
    steps = block = 8 (the generated ring's tile) must equal phase 2's ring
@@ -103,7 +111,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import itertools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -118,12 +128,18 @@ TSTEPS = 1000
 STEPS = BLOCK = 8                       # time tile; divides every size and T
 TOL = dict(rtol=1e-5, atol=1e-5)
 TOL_LONG = dict(rtol=TSTEPS * 2 ** -22, atol=1e-5)   # see the docstring
+#: addressable step: rounds of its call against its library call, and
+#: launches queued back to back for its device time
+ADDR_ROUNDS, ADDR_REPS = 5, 200
 #: replays and negative rejections of validate (the reference's evidence)
 VALIDATE = {"jacobi-1d": (14, 3), "jacobi-2d": (17, 8), "heat-3d": (35, 12)}
 #: small shapes for the kernel-vs-plain checks: (shape, steps, blocks)
 SMALL = {"jacobi-1d": ((32,), 4, (1, 2, 4)),
          "jacobi-2d": ((16, 40), 4, (1, 4)),
          "heat-3d": ((8, 6, 5), 2, (1, 2))}
+#: inner widths over several ring CTAs and a multiple of no tile:
+#: (shape, steps), run at block 1 and block = steps
+SMALL_WIDE = {"jacobi-2d": ((40, 300), 4), "heat-3d": ((16, 37, 45), 2)}
 #: float32 operations a cell takes in one step of each update
 FLOPS_PER_CELL = {"jacobi-1d": 3, "jacobi-2d": 5, "heat-3d": 15}
 #: qwen2-7b's attention width (src/repro/configs/qwen2_7b.py), B = 1,
@@ -182,6 +198,11 @@ def say(*parts) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def spread(times) -> list:
+    """min, median and max of a list of times."""
+    return [min(times), statistics.median(times), max(times)]
 
 
 def attention_err(got, want, tol: float) -> float:
@@ -307,13 +328,15 @@ def main() -> int:
               f"flash_attention's bf16 kernels run no HGMMA: {bf16}")
 
     # ---------------------------------------------------------- phase 2 --
+    card = cg.ring_card(dev)
+    say(f"phase 2 ring limits: {card}")
     kernels = {"ring_stencil": cuda_lib.RING_STENCIL,
                "addressable_step": cuda_lib.ADDRESSABLE_STEP,
                "replay": cuda_lib.REPLAY}
     for k in kernels.values():
         k.launches = 0
     launches = {}                                 # (kernel, stencil) -> n
-    inputs, walls, ring_out = {}, {}, {}
+    inputs, walls, ring_out, shapes, addr_out = {}, {}, {}, {}, {}
 
     def counted(stencil, fn):
         before = {n: k.launches for n, k in kernels.items()}
@@ -331,6 +354,10 @@ def main() -> int:
         check(c.mode == "fifo-ring", f"{name}: {c.describe()}")
         x = on_card(shape)
         inputs[name] = x
+        shapes[name] = cg.ring_launch(shape, BLOCK, STEPS + 1, 2, card)
+        say(f"phase 2 {name} ring launch: {shapes[name].describe()}")
+        check(name == "jacobi-1d" or shapes[name].ctas > 1,
+              f"{name}: the ring runs on one CTA")
 
         def fused():
             y = x
@@ -349,10 +376,15 @@ def main() -> int:
         check(bool(torch.allclose(y, want, **TOL_LONG)),
               f"{name}: fifo-ring vs oracle err {err}")
         ca = a.compile(backend="cuda", mode="addressable")
+        before = cuda_lib.ADDRESSABLE_STEP.launches
         t0 = time.perf_counter()
         ya = counted(name, lambda: ca(x, TSTEPS, BLOCK))
         addr_s = time.perf_counter() - t0
+        check(cuda_lib.ADDRESSABLE_STEP.launches - before == TSTEPS,
+              f"{name}: the addressable job made "
+              f"{cuda_lib.ADDRESSABLE_STEP.launches - before} launches")
         walls[name] = {"ring_stencil": fused_s, "addressable_step": addr_s}
+        addr_out[name] = ya
         aerr = max_err(ya, want)
         check(bool(torch.allclose(ya, want, **TOL_LONG)),
               f"{name}: addressable vs oracle err {aerr}")
@@ -405,21 +437,65 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 4 --
     errs = {}
-    for name, (shape, steps, blocks) in SMALL.items():
+    small = [(name, shape, steps, blocks)
+             for name, (shape, steps, blocks) in SMALL.items()]
+    small += [(name, shape, steps, (1, steps))
+              for name, (shape, steps) in SMALL_WIDE.items()]
+    for name, shape, steps, blocks in small:
         p = cg.STENCIL_PROGRAMS[name]
         x = on_card(shape)
-        for block in blocks:
-            for depth, halo in ((steps + 1, 2), ((steps + 1) // 2, 2),
-                                (steps + 1, 1)):
-                got = cg.ring_stencil(x, p, steps, block, depth, halo)
-                want = cg._ring_plain(x, p, steps, block, depth, halo)
-                e = max_err(got, want)
-                check(close(got, want), f"ring {name} block {block} depth "
-                      f"{depth} halo {halo}: err {e}")
+        for block, (depth, halo), mode in itertools.product(
+                blocks, ((steps + 1, 2), ((steps + 1) // 2, 2),
+                         (steps + 1, 1)), cg.RING_MODES):
+            got = cg._ring_stencil_with(
+                x, p, steps, block, depth, halo,
+                cg._ring_launch(shape, block, depth, halo, card, mode=mode))
+            want = cg._ring_plain(x, p, steps, block, depth, halo)
+            e = max_err(got, want)
+            check(close(got, want), f"ring {name} {shape} block {block} "
+                  f"depth {depth} halo {halo} mode {mode}: err {e}")
         got, want = cg.addressable_step(x, p), cg._addressable_plain(x, p)
         check(close(got, want), f"addressable {name}: {max_err(got, want)}")
-    say("phase 4 small shapes: ring (block 1 and injections included) and "
-        "addressable match their plain versions")
+        want = x
+        for n_steps in range(1, 4):
+            want = cg._addressable_plain(want, p)
+            got = cg.addressable_steps(x, p, n_steps)
+            check(close(got, want), f"addressable job {name} {shape} "
+                  f"steps {n_steps}: {max_err(got, want)}")
+    ctas_in = lambda shape, steps, m: cg._ring_launch(
+        shape, steps, steps + 1, 2, card, mode=m).ctas
+    wide = "; ".join(
+        f"{name} {shape}: " + ", ".join(
+            f"{ctas_in(shape, steps, m)} in {m}" for m in cg.RING_MODES)
+        for name, (shape, steps) in SMALL_WIDE.items())
+    say(f"phase 4 small shapes: ring (block 1 and injections included, in "
+        f"every mode: {wide} CTAs) and addressable (one step and the job) "
+        f"match their plain versions")
+    xw = on_card(SMALL_WIDE["jacobi-2d"][0])
+    p = cg.STENCIL_PROGRAMS["jacobi-2d"]
+    too_many = cg._ring_launch(tuple(xw.shape), 4, 5, 2, card, ctas=32)
+    try:
+        cg._ring_stencil_with(xw, p, 4, 4, 5, 2, too_many)
+    except RuntimeError as e:
+        say(f"phase 4 a cluster of {too_many.ctas} CTAs is refused: {e}")
+    else:
+        raise AssertionError("a ring cluster of more than 16 CTAs launched")
+    # 300 CTAs of 1024 threads, one a row: more than the SMs can hold
+    xg = on_card((4, 300, 1024))
+    pg = cg.STENCIL_PROGRAMS["heat-3d"]
+    big = cg._ring_launch(tuple(xg.shape), 4, 5, 2, card, ctas=300,
+                          mode="grid")
+    check(big.ctas == 300 and big.threads * big.segments == 1024,
+          f"the oversized grid is {big.describe()}")
+    try:
+        cg._ring_stencil_with(xg, pg, 4, 4, 5, 2, big)
+    except RuntimeError as e:
+        say(f"phase 4 a grid of 300 CTAs is refused: {e}")
+    else:
+        raise AssertionError("a ring grid of more CTAs than SMs launched")
+    check(close(cg.ring_stencil(xw, p, 4, 4, 5, 2),
+                cg._ring_plain(xw, p, 4, 4, 5, 2)),
+          "the launch after a refused one")
     events = {}
     for name, x in inputs.items():
         p = cg.STENCIL_PROGRAMS[name]
@@ -480,17 +556,22 @@ def main() -> int:
         check(lib_err < 1e-4, f"{name}: conv yardstick err {lib_err}")
         traffic = hbm_traffic_model(cells, STEPS)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        d1, d2 = cg._inner_dims(x)
+        d1, d2 = cg._inner_dims(x.shape)
         out = torch.empty_like(x)
-        scratch = cg.ring_scratch(x, BLOCK, STEPS + 1, 2)
+        out2 = torch.empty_like(x)
+        shape = shapes[name]
+        scratch = torch.empty(shape.scratch_floats, device=dev)
         raw = {
             "ring_stencil": lambda: cuda_lib.RING_STENCIL(
                 x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                 p.cuda_kind, x.shape[0], d1, d2, STEPS, BLOCK, STEPS + 1, 2,
+                shape.ctas, shape.rows, shape.stride, shape.threads,
+                shape.segments, shape.smem_bytes, int(shape.mode == "grid"),
                 stream),
+            # ADDR_REPS launches queued back to back by one C call
             "addressable_step": lambda: cuda_lib.ADDRESSABLE_STEP(
-                x.data_ptr(), out.data_ptr(), p.cuda_kind, x.shape[0], d1,
-                d2, stream),
+                x.data_ptr(), out.data_ptr(), out2.data_ptr(), p.cuda_kind,
+                x.shape[0], d1, d2, ADDR_REPS, stream, launches=ADDR_REPS),
         }
         for kernel, kfn, pfn, lfn, nbytes, flops in (
                 ("ring_stencil",
@@ -504,18 +585,34 @@ def main() -> int:
                  traffic["naive_bytes"] / STEPS,
                  cells * FLOPS_PER_CELL[name])):
             bound_s, bound_by = h100.roofline_seconds(nbytes, flops)
-            rows.append({
+            row = {
                 "name": f"{kernel}[{name}]", "route": "cuda",
                 "source": SOURCES[kernel], "replaces": REPLACES[kernel],
                 "launches": launches[(kernel, name)],
                 "max_abs_err": errs[(kernel, name)],
-                "ms": cuda_ms(kfn, 20),
-                "device_ms": device_ms(raw[kernel], 5 if kernel ==
-                                       "ring_stencil" else 200),
                 "plain_ms": cuda_ms(pfn, 3),
                 "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-                "library_ms": None if lfn is None else cuda_ms(lfn, 20),
-                "shape": list(x.shape), "steps": STEPS, "block": BLOCK})
+                "shape": list(x.shape), "steps": STEPS, "block": BLOCK}
+            if kernel == "ring_stencil":
+                row.update(ms=cuda_ms(kfn, 20),
+                           device_ms=device_ms(raw[kernel], 5),
+                           library_ms=None, mode=shape.mode,
+                           ctas=shape.ctas, threads=shape.threads
+                           * shape.segments, smem_bytes=shape.smem_bytes)
+            else:
+                # the call and its library call in turns: their ratio has
+                # crossed 1 from run to run
+                k_ms, l_ms = [], []
+                for _ in range(ADDR_ROUNDS):
+                    k_ms.append(cuda_ms(kfn, 20))
+                    l_ms.append(cuda_ms(lfn, 20))
+                row.update(ms=statistics.median(k_ms),
+                           device_ms=device_ms(raw[kernel], 1) / ADDR_REPS,
+                           library_ms=statistics.median(l_ms),
+                           ms_min_median_max=spread(k_ms),
+                           library_ms_min_median_max=spread(l_ms))
+                row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            rows.append(row)
         for kernel in ("ring_stencil", "addressable_step"):
             row = rows[-2 if kernel == "ring_stencil" else -1]
             busy = (row["device_ms"] * launches[(kernel, name)] / 1e3
@@ -524,6 +621,45 @@ def main() -> int:
                 f"{walls[name][kernel]:.4f} s host clock, "
                 f"{launches[(kernel, name)]} launches, device busy "
                 f"{busy:.4f} of it")
+        row = rows[-1]
+        say(f"phase 5 {name} addressable_step call, {ADDR_ROUNDS} rounds "
+            f"min/median/max: {row['ms_min_median_max']} ms, library "
+            f"({fn.__name__}) {row['library_ms_min_median_max']} ms; device "
+            f"{row['device_ms']:.5f} ms a launch, {row['bound_share']:.3f} "
+            f"of the bytes bound")
+        # the job again, warm (phase 2's first job also loaded the kernel),
+        # and as one replayed CUDA graph, the alternative to the launches
+        # queued from C
+        t0 = time.perf_counter()
+        cg.addressable_steps(x, p, TSTEPS)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        # (capture only records the launches, and the replays are not
+        # counted: the count is kept as it was, launches made)
+        graph = torch.cuda.CUDAGraph()
+        counted_before = cuda_lib.ADDRESSABLE_STEP.launches
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            yg = cg.addressable_steps(x, p, TSTEPS)
+        capture_s = time.perf_counter() - t0
+        cuda_lib.ADDRESSABLE_STEP.launches = counted_before
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(yg, addr_out[name]), f"{name}: graph job differs")
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        say(f"phase 5 {name} addressable_step job T={TSTEPS}, host clock: "
+            f"{warm_s:.4f} s queued from C, warm ("
+            f"{walls[name]['addressable_step']:.4f} s in phase 2), "
+            f"{graph_s:.4f} s as a replayed CUDA graph ({capture_s:.4f} s "
+            f"to capture and instantiate it)")
+        row["job_s"] = walls[name]["addressable_step"]
+        row["job_warm_s"] = warm_s
+        row["job_graph_s"] = graph_s
+        row["job_graph_capture_s"] = capture_s
+        del graph, yg
         ts, ring = events[name]
         n_ev = ts[0].numel()
         ring_buf = torch.empty(ring, dtype=torch.int32, device=dev)

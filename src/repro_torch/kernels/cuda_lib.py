@@ -42,7 +42,8 @@ def _nvcc() -> str:
 
 class CudaKernel:
     """One C entry point of one ``csrc`` source.  ``launches`` counts the
-    calls that launched the kernel (a plain integer a run may reset)."""
+    kernel launches its calls made (a plain integer a run may reset): one a
+    call, or what the caller says a call queued."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence) -> None:
         self.source = CSRC / source
@@ -73,13 +74,14 @@ class CudaKernel:
         if self._fn is None:
             build_all([self])
 
-    def __call__(self, *args) -> None:
-        self.ensure_loaded()
+    def __call__(self, *args, launches: int = 1) -> None:
+        if self._fn is None:
+            self.ensure_loaded()
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: launch failed with CUDA "
                                f"error {err}")
-        self.launches += 1
+        self.launches += launches
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
@@ -117,12 +119,17 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
     return seconds
 
 
-#: kernel 1 — the fused time-tiled ring stencil (`csrc/ring_stencil.cu`)
+#: kernel 1 — the fused time-tiled ring stencil over one cluster or a
+#: cooperative grid (`csrc/ring_stencil.cu`)
 RING_STENCIL = CudaKernel("ring_stencil.cu", "ring_stencil_f32",
-                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
-#: kernel 2 — one addressable time step (`csrc/addressable_step.cu`)
-ADDRESSABLE_STEP = CudaKernel("addressable_step.cu", "addressable_step_f32",
-                              [_P, _P, _I, _I, _I, _I, _P])
+                          [_P, _P, _P] + [_I] * 15 + [_P])
+#: the limits kernel 1's launch shape is cut to on a device (a query that
+#: launches nothing: call it with ``launches=0``)
+RING_LIMITS = CudaKernel("ring_stencil.cu", "ring_stencil_limits", [_I, _P])
+#: kernel 2 — addressable time steps, one launch each, queued from C
+#: (`csrc/addressable_step.cu`); a call counts the launches it queued
+ADDRESSABLE_STEP = CudaKernel("addressable_step.cu", "addressable_steps_f32",
+                              [_P, _P, _P, _I, _I, _I, _I, _I, _P])
 #: kernel 3 — trace replay through a ring of slots (`csrc/replay.cu`)
 REPLAY = CudaKernel("replay.cu", "replay_i32",
                     [_P, _P, _P, _I, _P, _I, _I, _P, _P])

@@ -50,11 +50,22 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two float32 blocks.  On the CPU it is taken in float64
+    and rounded to float32: MKL's batched sgemm (``SGEMM_BATCH``, with its
+    run-time choice of threads and no reproducibility mode) once gave one
+    (b, h) entry 6e-5 off, and a float64 product is exact enough that no
+    choice of kernel or threads shows in the result."""
+    if a.device.type == "cpu":
+        return (a.double() @ b.double()).float()
+    return a @ b
+
+
 def _flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
                            bk: int = 128, scale=None) -> torch.Tensor:
     """The plain PyTorch version: the reference kernel's (q block, kv block)
     grid, with (m, l, acc) carried across the kv blocks, for all (B, H) at
-    once."""
+    once.  Its two products go through `_product`."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
@@ -71,7 +82,8 @@ def _flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
         for kj in range(S // bk):
             if causal and kj * bk > qi * bq + bq - 1:
                 continue                      # wholly above the diagonal
-            s = qb @ kt[:, :, kj * bk:(kj + 1) * bk].transpose(-1, -2)
+            s = _product(qb, kt[:, :, kj * bk:(kj + 1) * bk]
+                         .transpose(-1, -2))
             if causal:
                 qpos = qi * bq + torch.arange(bq, device=q.device)[:, None]
                 kpos = kj * bk + torch.arange(bk, device=q.device)[None, :]
@@ -80,7 +92,7 @@ def _flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p @ vt[:, :, kj * bk:(kj + 1) * bk]
+            acc = acc * corr + _product(p, vt[:, :, kj * bk:(kj + 1) * bk])
             m = m_new
         out[:, :, qi * bq:(qi + 1) * bq] = acc / torch.clamp(l, min=1e-30)
     return out.to(q.dtype).transpose(1, 2)

@@ -43,7 +43,9 @@ analysis cannot derive).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
@@ -128,8 +130,10 @@ STENCIL_PROGRAMS: Dict[str, StencilProgram] = {
 
 # ------------------------------------------------------ kernel wrappers -----
 
-def _inner_dims(x: torch.Tensor) -> Tuple[int, int]:
-    inner = tuple(x.shape[1:]) + (1, 1)
+def _inner_dims(shape: Tuple[int, ...]) -> Tuple[int, int]:
+    """(d1, d2) of an item of an array of ``shape``: its rows and their
+    cells (1 for an axis it lacks)."""
+    inner = tuple(shape[1:]) + (1, 1)
     return int(inner[0]), int(inner[1])
 
 
@@ -181,21 +185,146 @@ def _ring_plain(x: torch.Tensor, program: StencilProgram, steps: int,
     return out
 
 
-def ring_scratch(x: torch.Tensor, block: int, ring_depth: int,
-                 halo: int) -> torch.Tensor:
-    """The ring kernel's global scratch for ``x``: two ring copies and two
-    working rows."""
-    d1, d2 = _inner_dims(x)
-    floats = (2 * ring_depth * halo + 2 * block) * d1 * d2
-    return torch.empty(floats, dtype=torch.float32, device=x.device)
+#: CTAs a cluster may hold on Hopper (16 with the non-portable attribute)
+MAX_CLUSTER = 16
+#: items of a block one ring thread may walk (the kernel is built for each)
+SEGMENTS = (8, 4, 2, 1)
+#: where the ring's CTAs are and where their tiles live: one cluster with
+#: the tiles in shared memory, or a cooperative grid of up to one CTA an SM
+#: with them in the L2-resident global scratch
+RING_MODES = ("shared", "grid")
+
+
+@dataclass(frozen=True)
+class RingCard:
+    """What a ring launch shape depends on in the card: its ``sms``, the
+    ``smem_bytes`` of shared memory a CTA may opt in to, and the threads a
+    CTA of the kernel may have where a thread walks ``seg`` items,
+    ``max_threads[seg]`` (the kernel's launch bound).  `ring_card` reads
+    them from the device and the kernel."""
+
+    sms: int
+    smem_bytes: int
+    max_threads: Dict[int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_card(index: int) -> RingCard:
+    out = (ctypes.c_int * 6)()
+    cuda_lib.RING_LIMITS(index, out, launches=0)
+    return RingCard(out[0], out[1], {1 << i: out[2 + i] for i in range(4)})
+
+
+def ring_card(device: torch.device) -> RingCard:
+    """The `RingCard` of CUDA ``device``, from ``ring_stencil_limits`` in
+    ``csrc/ring_stencil.cu``."""
+    return _ring_card(torch.cuda.current_device() if device.index is None
+                      else device.index)
+
+
+@dataclass(frozen=True)
+class RingLaunch:
+    """The ring kernel's launch shape for one geometry: ``ctas`` CTAs in
+    ``mode`` (`RING_MODES`), each owning ``rows`` of the item's d1 rows
+    (its tile: ``stride`` floats an item, padded to 128 bytes), of
+    ``threads`` × ``segments`` threads, a thread walking ``block /
+    segments`` items of its columns.  The tile's two ring copies and three
+    working rows (each the ring level's ``halo`` items, then the block)
+    take ``tile_floats``: in ``smem_bytes`` of shared memory, or, where
+    that is 0, in a global scratch of ``scratch_floats``."""
+
+    mode: str
+    ctas: int
+    rows: int
+    stride: int
+    threads: int
+    segments: int
+    tile_floats: int
+    smem_bytes: int
+    scratch_floats: int
+
+    def describe(self) -> str:
+        where = (f"{self.smem_bytes} B of shared memory a CTA"
+                 if self.smem_bytes else
+                 f"a {4 * self.scratch_floats} B global scratch")
+        group = ("a cooperative grid" if self.mode == "grid" else
+                 f"a cluster of {self.ctas}")
+        return (f"{self.ctas} CTA(s) in {group}, {self.threads}x"
+                f"{self.segments} threads, {self.rows} row(s) a CTA, tiles "
+                f"in {where}")
+
+
+def ring_launch(shape: Tuple[int, ...], block: int, ring_depth: int,
+                halo: int, card: RingCard) -> RingLaunch:
+    """The launch shape of `ring_stencil` for an input of ``shape`` on
+    ``card``: the item's d1 rows spread over one cluster of up to 16 CTAs
+    with the tiles in shared memory where they fit there, else over a
+    cooperative grid of up to one CTA an SM.  Threads: the block cut into
+    segments of 8, 4, 2 or 1 items so that a thread walks the fewest
+    columns, with the most threads."""
+    return _ring_launch(shape, block, ring_depth, halo, card)
+
+
+def _ring_launch(shape: Tuple[int, ...], block: int, ring_depth: int,
+                 halo: int, card: RingCard, ctas: Optional[int] = None,
+                 mode: Optional[str] = None) -> RingLaunch:
+    """`ring_launch` with the CTAs capped at ``ctas`` and the mode forced
+    to ``mode`` where given: a shape the card may refuse at launch, for
+    the tests and the bench."""
+    if mode not in (None,) + RING_MODES:
+        raise ValueError(f"ring mode {mode!r} is none of {RING_MODES}")
+    d1, d2 = _inner_dims(shape)
+
+    def tiles(most: int):
+        rows = -(-d1 // min(most, d1))
+        stride = -(-(rows * d2) // 32) * 32
+        return (-(-d1 // rows), rows, stride,
+                (2 * ring_depth * halo + 3 * (halo + block)) * stride)
+
+    if mode is None:
+        fits = 4 * tiles(ctas or MAX_CLUSTER)[3] <= card.smem_bytes
+        mode = "shared" if fits else "grid"
+    most = ctas or (card.sms if mode == "grid" else MAX_CLUSTER)
+    n_ctas, rows, stride, tile = tiles(most)
+    width = rows * d2
+    limit = card.max_threads
+    shapes = [(seg, *_ring_threads(width, block // seg, limit[seg]))
+              for seg in SEGMENTS
+              if block % seg == 0 and block // seg <= limit[seg]]
+    if not shapes:
+        raise ValueError(f"block {block}: no split into segments of "
+                         f"{SEGMENTS} items that a CTA's threads can hold")
+    # the fewest columns a thread walks a level (each costs a round trip
+    # to the tile), then the most threads, then the longest segments
+    seg, threads, _ = min(shapes, key=lambda t: (t[2], -t[1] * block // t[0],
+                                                 -t[0]))
+    if mode == "shared" and 4 * tile > card.smem_bytes:
+        raise ValueError(f"ring tiles of {4 * tile} B pass the "
+                         f"{card.smem_bytes} B of shared memory a CTA may "
+                         f"hold")
+    smem = 4 * tile if mode == "shared" else 0
+    return RingLaunch(mode, n_ctas, rows, stride, threads, block // seg,
+                      tile, smem, 0 if smem else n_ctas * tile)
+
+
+def _ring_threads(width: int, segments: int, limit: int) -> Tuple[int, int]:
+    """Threads along a tile's ``width`` columns for ``segments`` segments
+    of ``seg`` items under ``limit`` threads a CTA (whole warps where there
+    are 32 columns or more), and the columns each thread walks."""
+    cap = limit // segments
+    threads = (min(width, cap) if width < 32 or cap < 32
+               else min(-(-width // 32) * 32, cap // 32 * 32))
+    return threads, -(-width // threads)
 
 
 def ring_stencil(x: torch.Tensor, program: StencilProgram, steps: int,
                  block: int, ring_depth: int, halo: int) -> torch.Tensor:
     """``steps`` time levels of ``program`` over ``x`` with the cross-block
     channels in a ring of ``ring_depth`` levels × ``halo`` items: kernel 1,
-    ``csrc/ring_stencil.cu`` on a CUDA tensor, `_ring_plain` on a CPU one.
-    Raises ValueError on a geometry the kernel cannot run."""
+    ``csrc/ring_stencil.cu`` on a CUDA tensor, launched as `ring_launch`
+    gives (a launch that cannot be placed raises RuntimeError);
+    `_ring_plain` on a CPU one.  Raises ValueError on a geometry the
+    kernel cannot run."""
     p = program
     if x.dim() != p.inner_rank + 1:
         raise ValueError(f"{p.name}: expected rank {p.inner_rank + 1} "
@@ -213,15 +342,47 @@ def ring_stencil(x: torch.Tensor, program: StencilProgram, steps: int,
     if x.device.type != "cuda":
         raise ValueError(f"ring_stencil: no kernel for device {x.device}")
     _check_cuda_input(x, program)
-    d1, d2 = _inner_dims(x)
+    return _ring_stencil_with(
+        x, program, steps, block, ring_depth, halo,
+        ring_launch(tuple(x.shape), block, ring_depth, halo,
+                    ring_card(x.device)))
+
+
+def _ring_stencil_with(x: torch.Tensor, program: StencilProgram, steps: int,
+                       block: int, ring_depth: int, halo: int,
+                       shape: RingLaunch) -> torch.Tensor:
+    """Kernel 1 on CUDA tensor ``x`` (checked by `ring_stencil`) at launch
+    ``shape``."""
+    d1, d2 = _inner_dims(x.shape)
     out = torch.empty_like(x)
-    scratch = ring_scratch(x, block, ring_depth, halo)
-    with torch.cuda.device(x.device):
+    scratch = torch.empty(shape.scratch_floats, dtype=torch.float32,
+                          device=x.device)
+    with _on(x.device):
         cuda_lib.RING_STENCIL(
             x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             program.cuda_kind, x.shape[0], d1, d2, steps, block, ring_depth,
-            halo, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            halo, shape.ctas, shape.rows, shape.stride, shape.threads,
+            shape.segments, shape.smem_bytes, int(shape.mode == "grid"),
+            _stream(x.device))
     return out
+
+
+def _on(device: torch.device):
+    """A context that makes ``device`` current, or none where it is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device``, as the address a C entry point
+    takes."""
+    index = torch.cuda.current_device() if device.index is None else \
+        device.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:               # no Stream object to build
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def _addressable_plain(x: torch.Tensor, program: StencilProgram
@@ -233,23 +394,44 @@ def _addressable_plain(x: torch.Tensor, program: StencilProgram
                             for k in range(2 * r + 1)])
 
 
+def addressable_steps(x: torch.Tensor, program: StencilProgram,
+                      steps: int) -> torch.Tensor:
+    """``steps`` time steps of ``program`` over the whole array, one launch
+    of kernel 2 (``csrc/addressable_step.cu``) each, every level a round
+    trip through device memory: the checks, the two ping-pong buffers and
+    the stream are taken once a job, and the launches are queued from C.
+    ``steps`` chained `_addressable_plain` calls on a CPU tensor.  Returns
+    ``x`` itself for ``steps == 0``."""
+    if steps < 0:
+        raise ValueError(f"steps = {steps} < 0")
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"addressable_step: no kernel for device "
+                             f"{x.device}")
+        for _ in range(steps):
+            x = _addressable_plain(x, program)
+        return x
+    _check_cuda_input(x, program)
+    if steps == 0:
+        return x
+    d1, d2 = _inner_dims(x.shape)
+    a = torch.empty_like(x)
+    b = torch.empty_like(x) if steps > 1 else None
+    device = x.device
+    with _on(device):
+        cuda_lib.ADDRESSABLE_STEP(
+            x.data_ptr(), a.data_ptr(), 0 if b is None else b.data_ptr(),
+            program.cuda_kind, x.shape[0], d1, d2, steps, _stream(device),
+            launches=steps)
+    return a if steps % 2 else b
+
+
 def addressable_step(x: torch.Tensor, program: StencilProgram
                      ) -> torch.Tensor:
     """One time step of ``program`` over the whole array: kernel 2,
     ``csrc/addressable_step.cu`` on a CUDA tensor, `_addressable_plain` on
     a CPU one."""
-    if x.device.type == "cpu":
-        return _addressable_plain(x, program)
-    if x.device.type != "cuda":
-        raise ValueError(f"addressable_step: no kernel for device {x.device}")
-    _check_cuda_input(x, program)
-    d1, d2 = _inner_dims(x)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        cuda_lib.ADDRESSABLE_STEP(
-            x.data_ptr(), out.data_ptr(), program.cuda_kind, x.shape[0], d1,
-            d2, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    return out
+    return addressable_steps(x, program, 1)
 
 
 # ------------------------------------------------------------ executable ----
@@ -287,10 +469,8 @@ class CompiledStencil:
         x = torch.as_tensor(x).to(device=self.device,
                                   dtype=torch.float32).contiguous()
         if self.mode == "addressable":
-            a = x
-            for _ in range(steps):      # deliberately NOT fused: one kernel
-                a = addressable_step(a, p)   # launch + full round trip per t
-            return a
+            # deliberately NOT fused: one launch and one round trip a step
+            return addressable_steps(x, p, steps)
         depth = steps + 1 if ring_depth is None else ring_depth
         h = 2 * p.radius if halo is None else halo
         return ring_stencil(x, p, steps, block, depth, h)

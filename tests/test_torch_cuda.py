@@ -25,9 +25,11 @@ from repro_torch.core.schedule import AffineSchedule  # noqa: E402
 from repro_torch.runtime import trace_channel  # noqa: E402
 from repro_torch.runtime.cuda_backend import (  # noqa: E402
     _build_events, _replay_plain, replay_events)
+from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.runtime.cuda_codegen import (  # noqa: E402
-    STENCIL_PROGRAMS, _addressable_plain, _ring_plain, addressable_step,
-    ring_stencil)
+    RING_MODES, STENCIL_PROGRAMS, _addressable_plain, _ring_launch,
+    _ring_plain, _ring_stencil_with, addressable_step, addressable_steps,
+    ring_card, ring_stencil)
 
 ATOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -64,6 +66,99 @@ def test_stencil_kernels_match_plain_versions(name, cuda_device):
             assert torch.allclose(got, want, **ATOL), (block, depth, halo)
     assert torch.allclose(addressable_step(x, p), _addressable_plain(x, p),
                           **ATOL)
+
+
+#: inner widths over several ring CTAs, a multiple of no tile: kernel →
+#: (shape, steps)
+WIDE = {"jacobi-2d": ((40, 300), 4), "heat-3d": ((16, 37, 45), 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RING_MODES)
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_ring_kernel_over_many_ctas_matches_plain_version(name, mode,
+                                                          cuda_device):
+    """The ring's rows over 13-100 CTAs, in one cluster with the tiles in
+    shared memory or in a cooperative grid with them in the global
+    scratch: block 1 and block = steps, each with a full ring, an
+    undersized one and a narrowed halo."""
+    shape, steps = WIDE[name]
+    p = STENCIL_PROGRAMS[name]
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(shape)
+                         .astype(np.float32)).to(cuda_device)
+    card = ring_card(cuda_device)
+    assert _ring_launch(shape, steps, steps + 1, 2, card,
+                        mode=mode).ctas > 1
+    for block in (1, steps):
+        for depth, halo in ((steps + 1, 2), ((steps + 1) // 2, 2),
+                            (steps + 1, 1)):
+            got = _ring_stencil_with(x, p, steps, block, depth, halo,
+                                     _ring_launch(shape, block, depth, halo,
+                                                  card, mode=mode))
+            want = _ring_plain(x, p, steps, block, depth, halo)
+            torch.cuda.synchronize()
+            assert torch.allclose(got, want, **ATOL), (block, depth, halo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [
+    ("jacobi-1d", (40,)), ("jacobi-1d", (37,)), ("jacobi-2d", (40, 300)),
+    ("jacobi-2d", (9, 37)), ("heat-3d", (16, 37, 45)), ("heat-3d", (6, 5, 8)),
+])
+def test_addressable_job_matches_chained_plain_steps(name, shape,
+                                                     cuda_device):
+    """The job entry point (float4 rows where the contiguous width allows,
+    scalar ones elsewhere) against chained plain steps, one launch a
+    step."""
+    p = STENCIL_PROGRAMS[name]
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(shape)
+                         .astype(np.float32)).to(cuda_device)
+    want = x
+    for steps in range(1, 6):
+        want = _addressable_plain(want, p)
+        before = cuda_lib.ADDRESSABLE_STEP.launches
+        got = addressable_steps(x, p, steps)
+        torch.cuda.synchronize()
+        assert cuda_lib.ADDRESSABLE_STEP.launches - before == steps
+        assert torch.allclose(got, want, **ATOL), steps
+
+
+@pytest.mark.cuda
+def test_ring_card_reads_the_device(cuda_device):
+    """The ring's launch limits come from the device (its SMs and the
+    shared memory a CTA may opt in to) and from the kernel's launch
+    bounds."""
+    card = ring_card(cuda_device)
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert card.sms == props.multi_processor_count
+    assert 48 * 1024 < card.smem_bytes <= 256 * 1024
+    assert sorted(card.max_threads) == [1, 2, 4, 8]
+    assert all(0 < n <= 1024 for n in card.max_threads.values())
+
+
+@pytest.mark.cuda
+def test_unplaceable_ring_launch_is_refused(cuda_device):
+    """A cluster of more CTAs than Hopper places (16), and a cooperative
+    grid of more 1024-thread CTAs than the card's SMs, are refused at their
+    launch, with no fallback to fewer CTAs, and the next launch is
+    clean."""
+    p = STENCIL_PROGRAMS["jacobi-2d"]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((16, 300))
+                         .astype(np.float32)).to(cuda_device)
+    card = ring_card(cuda_device)
+    many = _ring_launch(tuple(x.shape), 4, 5, 2, card, ctas=32)
+    assert many.ctas == 30
+    with pytest.raises(RuntimeError):
+        _ring_stencil_with(x, p, 4, 4, 5, 2, many)
+    heat = STENCIL_PROGRAMS["heat-3d"]
+    xg = torch.zeros((4, 300, 1024), device=cuda_device)
+    big = _ring_launch(tuple(xg.shape), 4, 5, 2, card, ctas=300, mode="grid")
+    assert (big.ctas, big.threads * big.segments) == (300, 1024)
+    with pytest.raises(RuntimeError):
+        _ring_stencil_with(xg, heat, 4, 4, 5, 2, big)
+    got = ring_stencil(x, p, 4, 4, 5, 2)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, _ring_plain(x, p, 4, 4, 5, 2), **ATOL)
 
 
 def two_proc_ppn(src_idx):

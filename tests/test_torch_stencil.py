@@ -31,7 +31,9 @@ from repro_torch.core import analyze  # noqa: E402
 from repro_torch.core.registry import get, kernel_names  # noqa: E402
 from repro_torch.runtime import REORDER_BUFFER  # noqa: E402
 from repro_torch.runtime.cuda_codegen import (  # noqa: E402
-    STENCIL_PROGRAMS, _memory_channels, addressable_step, ring_stencil)
+    MAX_CLUSTER, STENCIL_PROGRAMS, RingCard, _addressable_plain,
+    _memory_channels, _ring_launch, addressable_step, addressable_steps,
+    ring_launch, ring_stencil)
 
 #: kernel → (shape, steps, blocks to try — 1 is the degenerate tiling)
 from test_pallas import GEOMETRIES  # noqa: E402
@@ -151,6 +153,81 @@ def test_addressable_mode_matches_pallas(name):
     got = c(x, steps, 1)
     assert close(got, rc(jnp.asarray(x), steps, 1))
     assert close(got, c.program.ref(torch.from_numpy(x), steps))
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+def test_addressable_job_on_the_cpu_chains_plain_steps(name):
+    """The job entry point on a CPU tensor runs the plain version: ``steps``
+    chained `_addressable_plain` calls, and ``x`` itself for 0 steps."""
+    shape, steps, _ = GEOMETRIES[name]
+    p = STENCIL_PROGRAMS[name]
+    x = torch.from_numpy(inputs(shape, 6))
+    want = x
+    for n in range(1, steps + 2):
+        want = _addressable_plain(want, p)
+        assert torch.equal(addressable_steps(x, p, n), want)
+    assert addressable_steps(x, p, 0) is x
+    assert torch.equal(addressable_step(x, p), _addressable_plain(x, p))
+    with pytest.raises(ValueError):
+        addressable_steps(x, p, -1)
+
+
+#: an H100 SXM as `ring_card` reads it: 132 SMs, 227 KB of shared memory a
+#: CTA, and the ring kernel's launch bounds
+H100 = RingCard(sms=132, smem_bytes=232448,
+                max_threads={8: 512, 4: 1024, 2: 1024, 1: 1024})
+
+#: (shape, block, depth, halo, ctas, mode) → (mode, CTAs, rows a CTA): the
+#: main path's EXTRALARGE shapes at steps = block = 8 (heat-3d's tiles pass
+#: a cluster's shared memory, so it takes a grid), the card tests' wide
+#: shapes, a cluster cut to 4, and forced modes at 5 CTAs (None, None:
+#: the public `ring_launch`)
+LAUNCHES = [
+    ((4000,), 8, 9, 2, None, None, ("shared", 1, 1)),
+    ((2800, 2800), 8, 9, 2, None, None, ("shared", 16, 175)),
+    ((200, 200, 200), 8, 9, 2, None, None, ("grid", 100, 2)),
+    ((40, 300), 1, 5, 2, None, None, ("shared", 16, 19)),
+    ((16, 37, 45), 2, 3, 1, None, None, ("shared", 13, 3)),
+    ((2800, 2800), 8, 4, 2, 4, None, ("shared", 4, 700)),
+    ((16, 37, 45), 2, 3, 2, None, "grid", ("grid", 37, 1)),
+    ((16, 37, 45), 2, 3, 2, 5, "shared", ("shared", 5, 8)),
+    ((16, 37, 45), 2, 3, 2, 5, "grid", ("grid", 5, 8)),
+]
+
+
+@pytest.mark.parametrize("shape,block,depth,halo,ctas,mode,want", LAUNCHES)
+def test_ring_launch_shape(shape, block, depth, halo, ctas, mode, want):
+    """The ring's rows spread over one cluster of at most 16 CTAs or a
+    grid of at most one CTA an SM, every row owned once; threads ×
+    segments fill at most a CTA; the tiles go to shared memory in a
+    cluster where they fit, else to a global scratch."""
+    L = (ring_launch(shape, block, depth, halo, H100)
+         if ctas is None and mode is None else
+         _ring_launch(shape, block, depth, halo, H100, ctas, mode))
+    d1 = (shape[1:] + (1,))[0]
+    d2 = (shape[2:] + (1,))[0]
+    assert (L.mode, L.ctas, L.rows) == want
+    assert L.ctas <= (ctas or (H100.sms if L.mode == "grid"
+                               else MAX_CLUSTER))
+    assert (L.ctas - 1) * L.rows < d1 <= L.ctas * L.rows
+    assert L.stride % 32 == 0 and L.stride >= L.rows * d2
+    assert L.tile_floats == (2 * depth * halo + 3 * (halo + block)) * L.stride
+    assert block % L.segments == 0
+    assert L.threads * L.segments <= H100.max_threads[block // L.segments]
+    assert L.threads >= min(L.rows * d2, 32)
+    if L.mode == "shared":
+        assert L.smem_bytes == 4 * L.tile_floats <= H100.smem_bytes
+        assert L.scratch_floats == 0
+    else:
+        assert L.smem_bytes == 0
+        assert L.scratch_floats == L.ctas * L.tile_floats
+
+
+def test_ring_launch_refuses_what_it_cannot_shape():
+    with pytest.raises(ValueError, match="mode"):
+        _ring_launch((16, 40), 4, 5, 2, H100, mode="vmem")
+    with pytest.raises(ValueError, match="shared memory"):
+        _ring_launch((200, 200, 200), 8, 9, 2, H100, mode="shared")
 
 
 def test_compile_requires_plan_stage_and_known_program():
