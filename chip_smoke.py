@@ -22,8 +22,9 @@ failure:
    than one CTA.  The same job forced to ``mode="addressable"`` must
    match too, in exactly 1000 launches queued from C by one call.
    Then ``validate(backend="cuda")`` must give 14/17/35 replays and 3/8/12
-   negative rejections, and a wrong plan must raise.  The counts are read
-   here: every kernel must have launched.
+   negative rejections (its host clock, the analysis time users wait on,
+   is printed), and a wrong plan must raise.  The counts are read here:
+   every kernel must have launched.
 3. The undersized-ring and narrowed-halo injections must diverge from the
    oracle, at a small size.
 4. Each kernel is held against its plain PyTorch version on the same
@@ -31,7 +32,11 @@ failure:
    ring in each launch mode, its rows over several CTAs; the addressable
    job entry point against chained plain steps) and at the main path's
    shapes.  A ring cluster or grid that cannot be placed must raise and
-   leave the next launch clean.
+   leave the next launch clean.  The replay is held to its sequential walk
+   exactly, on every channel's list in the three disciplines and on seeded
+   random lists of one to three tiles and 7 events more (rings of 1 to
+   1024 slots and one past what the kernel keeps in shared memory, NOOPs
+   mixed in).
 5. Each kernel is timed with CUDA events at the main path's shapes, beside
    its plain version, its bound and, where one PyTorch call computes the
    same function, that call.  The addressable step's call and its library
@@ -42,7 +47,9 @@ failure:
    steps = block = 8 (the generated ring's tile) must equal phase 2's ring
    job and the oracle; then the two `repro_torch.bench.fig3_stencil` rows,
    hand-written against generated at (N, T) = (1024, 128) and
-   (4096, 256).  The hand-written kernel must have launched.
+   (4096, 256), each time beside the hand-written kernel's wave count
+   (the levels of its chain).  The hand-written kernel must have
+   launched.
 7. Flash attention through ``attention_op`` at qwen2-7b's width (H = 28,
    KV = 4, hd = 128), B = 1, causal: S = 4096 in bf16 and float32, and one
    bf16 call at S = 32768, each held against the kernel's plain version
@@ -53,10 +60,14 @@ failure:
    scale 1.0 (the reference's overflow case), held against the plain
    version and the sequential oracle.  The kernel must have launched.
 9. The three kernels against their plain versions at the shapes of
-   `tests/test_kernels.py`, and attention also at ragged S with B = 2,
+   `tests/test_kernels.py`; the Fig. 3 stencil also against its grid walk
+   on the CPU, bit for bit, there and at an odd block and at fewer, as
+   many and more blocks than one CTA's workers; attention also at ragged
+   S with B = 2,
    qwen2-7b's 7:1 grouping, bf16 and f16 at every head width and
    non-causal bf16.
-10. The three kernels timed as in phase 5; the attention yardstick is
+10. The three kernels timed as in phase 5 (the Fig. 3 stencil with its
+   wave count); the attention yardstick is
    ``F.scaled_dot_product_attention`` with k and v repeated to H heads so
    that head h reads kv head h % KV, as the reference groups them.
 
@@ -155,6 +166,12 @@ ATTN_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2,
 GLA_TOL = dict(rtol=2e-3, atol=2e-3)
 #: small shapes of tests/test_kernels.py
 SMALL_FIFO = ((256, 32), (512, 64), (1024, 128), (8, 1))
+#: the Fig. 3 stencil at an odd block, and at fewer, exactly as many and
+#: more blocks (the flush block included) than one CTA's workers at block 8
+#: (1024) and block 3
+WIDE_FIFO = ((99, 3), (3300, 3), (4000, 8), (8 * 1023, 8), (16000, 8))
+#: seeded random replay lists: tiles (then 7 events more) and ring sizes
+REPLAY_RANDOM = ((1, 1), (2, 37), (3, 1024), (1, 65536))
 SMALL_ATTN = ((2, 128, 4, 2, 64, True, "float32"),
               (1, 256, 8, 8, 128, True, "bfloat16"),
               (2, 128, 4, 1, 64, False, "float32"),
@@ -189,6 +206,9 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "gla_timemix": "src/repro_torch/csrc/gla_timemix.cu",
 }
+#: kernels redesigned for Hopper after their first port
+REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
+              "flash_attention"}
 
 
 def say(*parts) -> None:
@@ -365,6 +385,7 @@ def main() -> int:
                 y = c(y, STEPS, BLOCK)
             return y
 
+        torch.cuda.synchronize()          # time the job, not queued work
         t0 = time.perf_counter()
         y = counted(name, fused)
         fused_s = time.perf_counter() - t0
@@ -377,6 +398,7 @@ def main() -> int:
               f"{name}: fifo-ring vs oracle err {err}")
         ca = a.compile(backend="cuda", mode="addressable")
         before = cuda_lib.ADDRESSABLE_STEP.launches
+        torch.cuda.synchronize()          # the oracle's steps are queued
         t0 = time.perf_counter()
         ya = counted(name, lambda: ca(x, TSTEPS, BLOCK))
         addr_s = time.perf_counter() - t0
@@ -396,12 +418,16 @@ def main() -> int:
             f"{max_err(y, ya):.3g}, |oracle| max "
             f"{float(want.abs().max()):.3g}")
 
+    validate_s = {}
     for name, want in VALIDATE.items():
         a = planned(name)
+        t0 = time.perf_counter()
         v = counted(name, lambda: a.validate(backend="cuda")).validation
+        validate_s[name] = time.perf_counter() - t0
         check(v.backend == "cuda" and (v.replays, v.rejections) == want,
               f"{name}: validate gave {v.summary()}")
-        say(f"phase 2 validate: {v.summary()}")
+        say(f"phase 2 validate: {v.summary()}; {validate_s[name]:.4f} s "
+            f"host clock, {launches[('replay', name)]} replay launches")
     a = analyze(get("jacobi-1d")).classify().size(pow2=True).plan()
     broken = next(p for p in a.plans if p.pattern_before != Pattern.FIFO.value
                   and not p.split)
@@ -525,11 +551,27 @@ def main() -> int:
             for order_op in (cb._FIFO, cb._REGISTER, cb._REORDER):
                 got = cb.replay_events(*ts, ring, order_op)
                 want = cb._replay_plain(*ts, ring, order_op)
-                worst = max(worst, int((got - want).abs().max()))
+                walk = cb._replay_walk(*ts, ring, order_op)
+                worst = max(worst, int((got - want).abs().max()),
+                            int((got - walk).abs().max()))
         errs[("replay", name)] = float(worst)
-        check(worst == 0, f"replay {name}: kernel and plain version differ")
+        check(worst == 0, f"replay {name}: kernel, plain version and walk "
+              f"differ")
         events[name] = max(lists, key=lambda item: item[0][0].numel())
-    say("phase 4 main-path shapes: every kernel matches its plain version")
+    for tiles, ring in REPLAY_RANDOM:
+        n_ev = tiles * cb.REPLAY_TILE + 7
+        ts = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+            rng.integers(0, 4, n_ev), rng.integers(0, 64, n_ev),
+            rng.integers(0, ring, n_ev))]
+        for order_op in (cb._FIFO, cb._REGISTER, cb._REORDER):
+            got = cb.replay_events(*ts, ring, order_op).tolist()
+            walk = cb._replay_walk(*ts, ring, order_op).tolist()
+            check(got == walk, f"replay, {n_ev} random events, ring {ring}, "
+                  f"discipline {order_op}: {got} against the walk's {walk}")
+    say("phase 4 main-path shapes: every kernel matches its plain version; "
+        "the replay matches its walk on every channel's list and on random "
+        "lists of " + ", ".join(f"{t * cb.REPLAY_TILE + 7} events (ring {r})"
+                                 for t, r in REPLAY_RANDOM))
 
     # ---------------------------------------------------------- phase 5 --
     conv_w = {
@@ -678,7 +720,9 @@ def main() -> int:
             "bound_ms": h100.roofline_seconds(3 * 4 * n_ev + 6 * 4, 0)[0]
             * 1e3,
             "bound_by": "bytes", "library_ms": None,
-            "events": n_ev, "ring_slots": ring})
+            "events": n_ev, "ring_slots": ring,
+            "tiles": -(-n_ev // cb.REPLAY_TILE),
+            "validate_s": validate_s[name]})
     timing = cb.measure_compiled(planned("jacobi-1d").compile(), 4000,
                                  STEPS, BLOCK, repeats=5)
     say(f"phase 5 measure_compiled(jacobi-1d, 4000): {json.dumps(timing)}")
@@ -712,6 +756,8 @@ def main() -> int:
             y = jacobi_fifo_op(y, STEPS, BLOCK)
         return y
 
+    fifo = sf.fifo_launch(x.shape[0], BLOCK)
+    torch.cuda.synchronize()              # the oracle's steps are queued
     t0 = time.perf_counter()
     y4 = fig3_job()
     torch.cuda.synchronize()
@@ -725,7 +771,8 @@ def main() -> int:
     check(bool(torch.allclose(y4, want, **TOL_LONG)),
           f"fig3 job vs oracle: {max_err(y4, want)}")
     say(f"phase 6 fig3 jacobi-1d N={x.shape[0]} T={TSTEPS} as "
-        f"{launches['stencil_fifo']} jacobi_fifo calls: "
+        f"{launches['stencil_fifo']} jacobi_fifo calls of {fifo.waves} "
+        f"waves ({fifo.workers} blocks in flight, {fifo.rounds} round): "
         f"{walls['stencil_fifo']:.4f} s host clock, vs oracle "
         f"{max_err(y4, want):.3g}, vs the fifo-ring job "
         f"{max_err(y4, ring_out['jacobi-1d']):.3g}")
@@ -739,8 +786,9 @@ def main() -> int:
         check(row.get("vs_handwritten_err", 0.0) <= 1e-5,
               f"{row['name']}: vs hand-written "
               f"{row.get('vs_handwritten_err')}")
-        say(f"phase 6 {row['name']}: {row['ms']:.4f} ms, err "
-            f"{row['err']:.3g}"
+        say(f"phase 6 {row['name']}: {row['ms']:.4f} ms"
+            + (f" ({row['waves']} waves)" if "waves" in row else "")
+            + f", err {row['err']:.3g}"
             + (f", {row['vs_handwritten']:.3f}x of the hand-written time, "
                f"outputs differ by {row['vs_handwritten_err']:.3g}"
                if "vs_handwritten" in row else
@@ -834,13 +882,17 @@ def main() -> int:
     del plain, ref
 
     # ---------------------------------------------------------- phase 9 --
-    for n, bn in SMALL_FIFO:
+    for n, bn in SMALL_FIFO + WIDE_FIFO:
         xs = randn((n,))
         got, want = sf.jacobi_fifo(xs, bn, bn), sf._jacobi_fifo_plain(
             xs, bn, bn)
         check(bool(torch.allclose(got, want, rtol=max(1e-5, bn * 2 ** -22),
                                   atol=1e-5)),
               f"stencil_fifo ({n}, {bn}): {max_err(got, want)}")
+        # on the CPU PyTorch divides exactly, as the kernel does
+        walk = sf._jacobi_fifo_walk(xs.cpu(), bn, bn)
+        check(torch.equal(got.cpu(), walk), f"stencil_fifo ({n}, {bn}) vs "
+              f"the grid walk: {max_err(got.cpu(), walk)}")
     attn_worst = {}                   # dtype: the worst error of its cases
     for B, S, H, KV, hd, causal, dname in SMALL_ATTN:
         dt = getattr(torch, dname)
@@ -863,8 +915,12 @@ def main() -> int:
               and bool(torch.allclose(got, want, **GLA_TOL)),
               f"gla {(B, S, H, hd, chunk, scale)}: {max_err(got, want)}")
     say("phase 9 small shapes: stencil_fifo, flash_attention and "
-        "gla_timemix match their plain versions; flash_attention's worst "
-        "|kernel - plain|: " + ", ".join(
+        "gla_timemix match their plain versions; stencil_fifo equals its "
+        "grid walk bit for bit at " + ", ".join(
+            f"({n}, {bn}: {sf.fifo_launch(n, bn).workers} in flight, "
+            f"{sf.fifo_launch(n, bn).rounds} rounds)"
+            for n, bn in SMALL_FIFO + WIDE_FIFO)
+        + "; flash_attention's worst |kernel - plain|: " + ", ".join(
             f"{d} {e:.3g}" for d, e in attn_worst.items()))
 
     # --------------------------------------------------------- phase 10 --
@@ -881,16 +937,21 @@ def main() -> int:
                                sf._jacobi_fifo_plain(x, STEPS, BLOCK)),
         "ms": cuda_ms(lambda: sf.jacobi_fifo(x, STEPS, BLOCK), 20),
         "device_ms": device_ms(lambda: cuda_lib.STENCIL_FIFO(
-            x.data_ptr(), out4.data_ptr(), n4, BLOCK, STEPS, stream), 50),
+            x.data_ptr(), out4.data_ptr(), n4, BLOCK, STEPS, fifo.workers,
+            fifo.threads_per_worker, stream), 50),
         "plain_ms": cuda_ms(lambda: sf._jacobi_fifo_plain(x, STEPS, BLOCK),
                             3),
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-        "library_ms": None, "shape": [n4], "steps": STEPS, "block": BLOCK})
+        "library_ms": None, "shape": [n4], "steps": STEPS, "block": BLOCK,
+        "waves": fifo.waves, "workers": fifo.workers, "rounds": fifo.rounds,
+        "threads": fifo.threads})
     busy = (rows[-1]["device_ms"] * launches["stencil_fifo"] / 1e3
             / walls["stencil_fifo"])
     say(f"phase 10 stencil_fifo job T={TSTEPS}: "
         f"{walls['stencil_fifo']:.4f} s host clock, "
-        f"{launches['stencil_fifo']} launches, device busy {busy:.4f} of it")
+        f"{launches['stencil_fifo']} launches, device busy {busy:.4f} of it; "
+        f"a call {rows[-1]['device_ms']:.5f} ms on the device over "
+        f"{fifo.waves} waves")
 
     for key, (q, k, v) in attn.items():
         B, S, H, hd = q.shape
@@ -984,10 +1045,12 @@ def main() -> int:
             f"{row['bound_ms']:.5f} by {row['bound_by']}, library "
             f"{row['library_ms']})" + (
                 f", {row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} "
-                f"of the bound" if "tflops" in row else ""))
+                f"of the bound" if "tflops" in row else "") + (
+                f", {row['waves']} waves" if "waves" in row else ""))
     # the redesign order: first the kernels slower than their library call,
     # the largest factor first; then the rest by launches x (time - bound)
     for row in rows:
+        row["redesigned"] = row["name"].split("[")[0] in REDESIGNED
         row["excess_ms"] = row["launches"] * (row["ms"] - row["bound_ms"])
         if row["library_ms"] is not None:
             row["vs_library"] = row["ms"] / row["library_ms"]
@@ -995,8 +1058,9 @@ def main() -> int:
                                         if r.get("vs_library", 0.0) > 1
                                         else 0.0, -r["excess_ms"]))
     say("redesign order: " + "; ".join(
-        f"{r['name']} " + (f"{r['vs_library']:.2f}x library, "
-                           if r.get("vs_library", 0.0) > 1 else "")
+        f"{r['name']}{' (redesigned)' if r['redesigned'] else ''} "
+        + (f"{r['vs_library']:.2f}x library, "
+           if r.get("vs_library", 0.0) > 1 else "")
         + f"{r['launches']} x (time - bound) = {r['excess_ms']:.4f} ms"
         for r in order))
     say(f"total {time.perf_counter() - t_start:.1f} s")

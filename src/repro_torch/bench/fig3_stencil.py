@@ -30,7 +30,7 @@ def rows(seed: int = 0) -> List[Dict[str, object]]:
     current CUDA device.  ``err`` is the max abs error against the PyTorch
     oracle (whose largest magnitude is ``oracle_max_abs``);
     ``vs_handwritten_err`` the max abs difference of the two kernels'
-    outputs."""
+    outputs; ``waves`` the hand-written kernel's chain of levels."""
     if not torch.cuda.is_available():
         raise RuntimeError("fig3_stencil times kernels on a CUDA device; "
                            "there is none")
@@ -40,6 +40,7 @@ def rows(seed: int = 0) -> List[Dict[str, object]]:
     from repro_torch.kernels.stencil_fifo import (hbm_traffic_model,
                                                   jacobi_fifo_op,
                                                   jacobi_naive_op)
+    from repro_torch.kernels.stencil_fifo.kernel import fifo_launch
 
     gen = (analyze(get("jacobi-1d")).classify().fifoize().size().plan()
            .compile(backend="cuda"))
@@ -60,7 +61,7 @@ def rows(seed: int = 0) -> List[Dict[str, object]]:
             "name": f"fig3/stencil_n{n}_T{bn}", "ms": ms,
             "err": float((hand - want).abs().max()), **common,
             "naive_bytes": m["naive_bytes"], "fifo_bytes": m["fifo_bytes"],
-            "reduction": m["reduction"]})
+            "reduction": m["reduction"], "waves": fifo_launch(n, bn).waves})
         out.append({
             "name": f"fig3/generated_n{n}_T{bn}", "ms": ms_g,
             "err": float((generated - want).abs().max()), **common,
@@ -80,7 +81,7 @@ def main() -> int:
     print("name,ms,derived")
     for row in rows(args.seed):
         if "reduction" in row:
-            derived = (f"err={row['err']:.1e} traffic "
+            derived = (f"err={row['err']:.1e} waves={row['waves']} traffic "
                        f"{row['naive_bytes']:.2e}B -> {row['fifo_bytes']:.2e}B"
                        f" ({row['reduction']:.0f}x)")
         else:

@@ -15,6 +15,7 @@ wrapper raises if it is not 0, because a refused launch never runs and
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -119,6 +120,29 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
     return seconds
 
 
+def on_device(device):
+    """A context that makes ``device`` (a torch.device) current, or none
+    where it is: entering `torch.cuda.device` costs a wrapper call
+    microseconds of host time."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device) -> int:
+    """The current stream of ``device``, as a C entry point takes it."""
+    import torch
+
+    index = torch.cuda.current_device() if device.index is None else \
+        device.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:               # no Stream object to build
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 #: kernel 1 — the fused time-tiled ring stencil over one cluster or a
 #: cooperative grid (`csrc/ring_stencil.cu`)
 RING_STENCIL = CudaKernel("ring_stencil.cu", "ring_stencil_f32",
@@ -136,7 +160,7 @@ REPLAY = CudaKernel("replay.cu", "replay_i32",
 
 #: kernel 4 — the hand-written Fig. 3 jacobi-1d (`csrc/stencil_fifo.cu`)
 STENCIL_FIFO = CudaKernel("stencil_fifo.cu", "stencil_fifo_f32",
-                          [_P, _P, _I, _I, _I, _P])
+                          [_P, _P, _I, _I, _I, _I, _I, _P])
 #: kernel 5 — blocked GQA flash attention (`csrc/flash_attention.cu`)
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_fwd",
                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

@@ -39,7 +39,6 @@ pipeline ring.
 """
 from __future__ import annotations
 
-import ctypes
 import heapq
 from dataclasses import dataclass
 from typing import Optional
@@ -126,12 +125,15 @@ def _pow2(n: int) -> int:
 
 # ------------------------------------------------------------- kernel 3 ----
 
-def _replay_plain(kind: torch.Tensor, value: torch.Tensor,
-                  slot: torch.Tensor, ring_size: int,
-                  order_op: int) -> torch.Tensor:
-    """The plain PyTorch version of the replay kernel: the same sequential
-    walk over the events (the events form a dependent chain, so there is
-    nothing to vectorize), on the host values of the tensors."""
+#: events a tile of the replay kernel holds (``TILE`` in ``csrc/replay.cu``)
+REPLAY_TILE = 4096
+
+
+def _replay_walk(kind: torch.Tensor, value: torch.Tensor,
+                 slot: torch.Tensor, ring_size: int,
+                 order_op: int) -> torch.Tensor:
+    """The events walked one after another on the host values of the
+    tensors: the oracle the tiled scan is held to."""
     ring = [-1] * ring_size
     live = peak = order_v = mism = ovf = unf = 0
     last_p = -1
@@ -154,14 +156,82 @@ def _replay_plain(kind: torch.Tensor, value: torch.Tensor,
                         dtype=torch.int32, device=kind.device)
 
 
+def _replay_plain(kind: torch.Tensor, value: torch.Tensor,
+                  slot: torch.Tensor, ring_size: int, order_op: int,
+                  tile: int = REPLAY_TILE) -> torch.Tensor:
+    """The plain PyTorch version of the replay kernel, in its order: tiles
+    of ``tile`` events, every event of a tile at once.  ``live`` is a
+    prefix sum of push − retire; the pop order reads an exclusive prefix
+    maximum of the values popped; the state an event sees in its slot is
+    the last push (its value) or retire (−1) on that slot before it in the
+    tile — a stable sort by slot, then a segmented last-writer pass — else
+    what the ring held when the tile began.  Each slot's last writer
+    updates the ring at the tile's end."""
+    n = kind.numel()
+    kind, value, slot = (t.to(torch.int64) for t in (kind, value, slot))
+    ring = torch.full((ring_size,), -1, dtype=torch.int64, device=kind.device)
+    live = peak = order_v = mism = ovf = unf = 0
+    last_p = -1
+    for base in range(0, n, tile):
+        k, v, s = (t[base:base + tile] for t in (kind, value, slot))
+        push, pop, retire = k == _PUSH, k == _POP, k == _RETIRE
+        live_after = live + torch.cumsum(push.long() - retire.long(), 0)
+        peak = max(peak, int(live_after.max()))
+        popped = torch.where(pop, v, torch.iinfo(torch.int64).min)
+        most = torch.cummax(popped, 0).values
+        before = torch.cat([most.new_full((1,), last_p), most[:-1]])
+        before = torch.clamp(before, min=last_p)
+        if order_op == _FIFO:
+            order_v += int((pop & (v <= before)).sum())
+        elif order_op == _REGISTER:
+            order_v += int((pop & (v < before)).sum())
+        # slot state: stable sort by slot, last writer within each segment
+        order = torch.argsort(s, stable=True)
+        ss, sk, sv = s[order], k[order], v[order]
+        pos = torch.arange(len(ss), device=ss.device)
+        writes = (sk == _PUSH) | (sk == _RETIRE)
+        written = torch.where(sk == _PUSH, sv, -1)
+        head = torch.ones_like(writes)
+        head[1:] = ss[1:] != ss[:-1]
+        start = torch.cummax(torch.where(head, pos, 0), 0).values
+        last = torch.cummax(torch.where(writes, pos, -1), 0).values
+        last_before = torch.cat([last.new_full((1,), -1), last[:-1]])
+        cur = torch.where(last_before >= start,
+                          written[last_before.clamp(min=0)], ring[ss])
+        ovf += int(((sk == _PUSH) & (cur != -1)).sum())
+        unf += int(((sk == _POP) & (cur == -1)).sum())
+        mism += int(((sk == _POP) & (cur != sv) & (cur != -1)).sum())
+        tail = torch.ones_like(writes)
+        tail[:-1] = ss[1:] != ss[:-1]
+        update = tail & (last >= start)
+        ring[ss[update]] = written[last[update]]
+        live = int(live_after[-1])
+        last_p = max(last_p, int(popped.max()))
+    return torch.tensor([peak, order_v, mism, ovf, unf, live],
+                        dtype=torch.int32, device=kind.device)
+
+
 def replay_events(kind: torch.Tensor, value: torch.Tensor,
                   slot: torch.Tensor, ring_size: int,
                   order_op: int) -> torch.Tensor:
     """Run an int32 event list against a ring of ``ring_size`` slots
     initialised to -1; returns int32 ``[peak, order_violations,
     mismatches, overflows, underflows, live]``.  Kernel 3,
-    ``csrc/replay.cu``, on CUDA tensors; `_replay_plain` on CPU ones."""
+    ``csrc/replay.cu``, on CUDA tensors; `_replay_plain` on CPU ones.
+
+    Every slot must lie in ``[0, ring_size)``.  On CPU tensors a slot
+    outside raises ValueError; on CUDA tensors the range is not read back
+    (that would cost a device-to-host sync a call, before the caller's own
+    read of the result): the caller checks it, as `_RingReplay.run` does on
+    its host arrays, and the kernel leaves an event outside the ring
+    unrun."""
+    if ring_size < 1:
+        raise ValueError(f"replay_events: a ring of {ring_size} slots")
     if kind.device.type == "cpu":
+        if slot.numel() and not (0 <= int(slot.min())
+                                 and int(slot.max()) < ring_size):
+            raise ValueError(f"replay_events: a slot lies outside the "
+                             f"ring of {ring_size}")
         return _replay_plain(kind, value, slot, ring_size, order_op)
     if kind.device.type != "cuda":
         raise ValueError(f"replay_events: no kernel for device {kind.device}")
@@ -170,17 +240,13 @@ def replay_events(kind: torch.Tensor, value: torch.Tensor,
                 or t.shape != kind.shape or t.device != kind.device):
             raise ValueError("replay_events takes three contiguous int32 "
                              "event tensors of one shape on one device")
-    if slot.numel() and not 0 <= int(slot.min()) <= int(slot.max()) < ring_size:
-        raise ValueError(f"replay_events: a slot lies outside the ring of "
-                         f"{ring_size}")
     ring = torch.empty(ring_size, dtype=torch.int32, device=kind.device)
     out = torch.empty(6, dtype=torch.int32, device=kind.device)
-    with torch.cuda.device(kind.device):
+    with cuda_lib.on_device(kind.device):
         cuda_lib.REPLAY(
             kind.data_ptr(), value.data_ptr(), slot.data_ptr(),
             kind.numel(), ring.data_ptr(), ring_size, order_op,
-            out.data_ptr(),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            out.data_ptr(), cuda_lib.raw_stream(kind.device))
     return out
 
 
@@ -201,11 +267,15 @@ class _RingReplay(ChannelLowering):
                   np.concatenate([ev.value, np.zeros(pad, dtype=np.int64)]),
                   np.concatenate([ev.slot % nslots,
                                   np.zeros(pad, dtype=np.int64)])]
+        ring = _pow2(nslots)
+        if not 0 <= arrays[2].min() <= arrays[2].max() < ring:
+            raise ValueError(f"{trace.channel}: a slot lies outside the "
+                             f"ring of {ring}")
         dev = torch.device("cuda" if device is None else device)
         kind, value, slot = (torch.from_numpy(a.astype(np.int32)).to(dev)
                              for a in arrays)
         peak, order_v, mism, ovf, unf = replay_events(
-            kind, value, slot, _pow2(nslots), self.order_op).tolist()[:5]
+            kind, value, slot, ring, self.order_op).tolist()[:5]
         if order_v:
             raise OrderViolation(
                 trace.channel,

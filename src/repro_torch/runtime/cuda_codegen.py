@@ -43,7 +43,6 @@ analysis cannot derive).
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass, field
@@ -357,32 +356,14 @@ def _ring_stencil_with(x: torch.Tensor, program: StencilProgram, steps: int,
     out = torch.empty_like(x)
     scratch = torch.empty(shape.scratch_floats, dtype=torch.float32,
                           device=x.device)
-    with _on(x.device):
+    with cuda_lib.on_device(x.device):
         cuda_lib.RING_STENCIL(
             x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             program.cuda_kind, x.shape[0], d1, d2, steps, block, ring_depth,
             halo, shape.ctas, shape.rows, shape.stride, shape.threads,
             shape.segments, shape.smem_bytes, int(shape.mode == "grid"),
-            _stream(x.device))
+            cuda_lib.raw_stream(x.device))
     return out
-
-
-def _on(device: torch.device):
-    """A context that makes ``device`` current, or none where it is."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
-def _stream(device: torch.device) -> int:
-    """The current stream of ``device``, as the address a C entry point
-    takes."""
-    index = torch.cuda.current_device() if device.index is None else \
-        device.index
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:               # no Stream object to build
-        return raw(index)
-    return torch.cuda.current_stream(index).cuda_stream
 
 
 def _addressable_plain(x: torch.Tensor, program: StencilProgram
@@ -418,11 +399,11 @@ def addressable_steps(x: torch.Tensor, program: StencilProgram,
     a = torch.empty_like(x)
     b = torch.empty_like(x) if steps > 1 else None
     device = x.device
-    with _on(device):
+    with cuda_lib.on_device(device):
         cuda_lib.ADDRESSABLE_STEP(
             x.data_ptr(), a.data_ptr(), 0 if b is None else b.data_ptr(),
-            program.cuda_kind, x.shape[0], d1, d2, steps, _stream(device),
-            launches=steps)
+            program.cuda_kind, x.shape[0], d1, d2, steps,
+            cuda_lib.raw_stream(device), launches=steps)
     return a if steps % 2 else b
 
 

@@ -20,11 +20,12 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.gla_timemix.kernel import (  # noqa: E402
     _gla_timemix_plain, gla_timemix)
 from repro_torch.kernels.stencil_fifo.kernel import (  # noqa: E402
-    _jacobi_fifo_plain, jacobi_fifo)
+    MAX_THREADS, _jacobi_fifo_plain, _jacobi_fifo_walk, _jacobi_fifo_with,
+    fifo_launch, jacobi_fifo)
 from repro_torch.core.schedule import AffineSchedule  # noqa: E402
 from repro_torch.runtime import trace_channel  # noqa: E402
 from repro_torch.runtime.cuda_backend import (  # noqa: E402
-    _build_events, _replay_plain, replay_events)
+    REPLAY_TILE, _build_events, _replay_plain, _replay_walk, replay_events)
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.runtime.cuda_codegen import (  # noqa: E402
     RING_MODES, STENCIL_PROGRAMS, _addressable_plain, _ring_launch,
@@ -189,18 +190,44 @@ def test_replay_kernel_matches_plain_version(reads, cuda_device):
             got = replay_events(*(a.to(cuda_device) for a in args),
                                 ring_size, order_op)
             assert got.cpu().tolist() == want.tolist()
+            assert want.tolist() == _replay_walk(*args, ring_size,
+                                                 order_op).tolist()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,bn", [(8, 1), (64, 2), (256, 32), (1024, 128),
-                                  (4096, 2048)])
+@pytest.mark.parametrize("seed", range(4))
+def test_replay_kernel_matches_walk_across_tiles(seed, cuda_device):
+    """Seeded random lists of one to three tiles and some events more, in
+    all three disciplines with NOOPs mixed in, against the sequential walk
+    exactly: rings of 1 to 1024 slots (slots touched many times in a tile;
+    undersized rings), and one of 65536 slots, past what the kernel keeps
+    in shared memory."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 4)) * REPLAY_TILE + 7
+    for ring_size in (1, int(rng.integers(2, 1025)), 65536):
+        arrs = (rng.integers(0, 4, n), rng.integers(0, 64, n),
+                rng.integers(0, ring_size, n))
+        args = [torch.from_numpy(a.astype(np.int32)) for a in arrs]
+        for order_op in (0, 1, 2):
+            want = _replay_walk(*args, ring_size, order_op)
+            got = replay_events(*(a.to(cuda_device) for a in args),
+                                ring_size, order_op)
+            assert got.cpu().tolist() == want.tolist(), (ring_size, order_op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bn", [(8, 1), (64, 2), (99, 3), (256, 32),
+                                  (1024, 128), (4096, 2048), (16000, 8)])
 def test_jacobi_fifo_kernel_matches_plain_version(n, bn, cuda_device):
-    """Block 1 (the FIFO levels broadcast one cell) and a block wider than
-    the CTA's 1024 threads included.  The kernel divides by 3 exactly; the
-    plain version on the card multiplies by PyTorch's rounded reciprocal,
-    3.0e-8 too large relative to 1/3, a bias that compounds over the steps
-    (1.8e-5 at 2048 steps, above 1e-5).  So the tolerance is rtol =
-    steps * 2**-22 (`chip_smoke.py`'s TOL_LONG rule), at least 1e-5."""
+    """Block 1 (the FIFO levels broadcast one cell), an odd block, a block
+    wider than the CTA's 1024 threads hold at one cell each, and more
+    blocks than one CTA's workers (16000 cells at block 8: two rounds)
+    included.  The kernel divides by 3 exactly; the plain version on the
+    card multiplies by PyTorch's rounded reciprocal, 3.0e-8 too large
+    relative to 1/3, a bias that compounds over the steps (1.8e-5 at 2048
+    steps, above 1e-5).  So the tolerance is rtol = steps * 2**-22
+    (`chip_smoke.py`'s TOL_LONG rule), at least 1e-5.  On the CPU, where
+    PyTorch divides exactly, the grid walk gives the kernel's bits."""
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(n)
                          .astype(np.float32)).to(cuda_device)
     got = jacobi_fifo(x, bn, bn)
@@ -208,6 +235,26 @@ def test_jacobi_fifo_kernel_matches_plain_version(n, bn, cuda_device):
     torch.cuda.synchronize()
     assert torch.allclose(got, want, rtol=max(1e-5, bn * 2 ** -22),
                           atol=1e-5)
+    assert torch.equal(got.cpu(), _jacobi_fifo_walk(x.cpu(), bn, bn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bn,workers,tpw", [
+    (99, 3, 5, None), (256, 32, 2, None), (256, 32, 3, 8), (1024, 128, 2, 32),
+    (96, 24, 3, None), (40, 8, 1, None), (66, 33, None, None),
+    (8 * (MAX_THREADS - 1), 8, None, None)])
+def test_jacobi_fifo_kernel_in_rounds_equals_walk(n, bn, workers, tpw,
+                                                  cuda_device):
+    """Forced launches: few workers, so the blocks run in rounds and the
+    last worker's FIFO wraps to worker 0; uneven splits of a block over
+    its threads; channels between many warps; exactly as many blocks as
+    one CTA's workers.  Bit for bit against the CPU grid walk."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(n)
+                         .astype(np.float32))
+    launch = fifo_launch(n, bn, workers, tpw)
+    got = _jacobi_fifo_with(x.to(cuda_device), bn, bn, launch)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _jacobi_fifo_walk(x, bn, bn)), launch
 
 
 #: `tests/test_kernels.py::test_flash_attention_sweep`'s cases; ragged
@@ -301,10 +348,11 @@ def test_gla_timemix_kernel_matches_plain_version(B, S, H, hd, chunk,
 def test_oversized_shared_memory_is_refused(cuda_device):
     """A tile whose shared memory passes what a CTA may hold (227 KB) is
     refused at its launch, and the refusal does not leak into the next
-    launch: the wrappers have no shared-memory check of their own."""
+    launch: the wrappers have no shared-memory check of their own.  A Fig.
+    3 block of 30000 cells would take 3,750 threads and 480 KB of FIFO."""
     x = torch.zeros(30000, device=cuda_device)
     with pytest.raises(RuntimeError):
-        jacobi_fifo(x, 30000, 30000)              # 720 KB
+        jacobi_fifo(x, 30000, 30000)
     r = torch.zeros((1, 256, 1, 128), device=cuda_device)
     u = torch.zeros((1, 128), device=cuda_device)
     with pytest.raises(RuntimeError):

@@ -5,7 +5,11 @@ kernels run in interpret mode, as `tests/test_kernels.py` runs them.  The
 same numpy inputs go to both, and the tolerances are the reference's:
 
 1. The hand-written Fig. 3 stencil (`jacobi_fifo`) equals the JAX kernel
-   and the generated ring, and raises where the reference asserts.
+   and the generated ring, and raises where the reference asserts; its
+   plain version in the kernel's wave order equals the grid walk bit for
+   bit; the launch holds the blocks in rounds of one CTA's workers; the
+   kernel's division by 3 (an FMA-corrected product) is correctly
+   rounded.
 2. Flash attention's plain version equals the JAX kernel on the five
    `test_flash_attention_sweep` cases, the chunked oracles agree, and the
    result does not depend on the block shape.
@@ -31,6 +35,8 @@ from repro_torch.kernels.gla_timemix import (  # noqa: E402
     gla_timemix, timemix_op, timemix_ref)
 from repro_torch.kernels.stencil_fifo import (  # noqa: E402
     jacobi_1d, jacobi_fifo, jacobi_fifo_op, jacobi_naive_op)
+from repro_torch.kernels.stencil_fifo.kernel import (  # noqa: E402
+    MAX_THREADS, _jacobi_fifo_plain, _jacobi_fifo_walk, fifo_launch)
 
 ATOL = dict(rtol=1e-5, atol=1e-5)
 _JNP_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
@@ -81,6 +87,82 @@ def test_jacobi_fifo_matches_generated_ring():
 def test_jacobi_fifo_rejects_what_the_reference_asserts(n, steps, block):
     with pytest.raises(ValueError):
         jacobi_fifo(torch.zeros(n), steps=steps, block=block)
+
+
+@pytest.mark.parametrize("n,bn", [(8, 1), (64, 2), (99, 3), (256, 32),
+                                  (1024, 128), (4000, 8)])
+def test_jacobi_fifo_wave_order_equals_grid_walk(n, bn):
+    """Every block on level t together, each reading the FIFO cells its
+    left neighbour handed over at level t − 1, gives the Pallas grid walk's
+    bits: block 1's broadcast FIFO and an odd block included."""
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(n,)).astype(
+        np.float32))
+    assert torch.equal(_jacobi_fifo_plain(x, bn, bn),
+                       _jacobi_fifo_walk(x, bn, bn))
+
+
+@pytest.mark.parametrize("n,bn,workers,tpw,rounds", [
+    (4000, 8, 501, 2, 1),                 # PolyBench EXTRALARGE
+    (1024, 128, 9, 32, 1), (4096, 256, 17, 32, 1),   # the Fig. 3 rows
+    (8 * (MAX_THREADS - 1), 8, MAX_THREADS, 1, 1),
+    (16000, 8, MAX_THREADS, 1, 2), (99, 3, 34, 1, 1), (66, 33, 3, 9, 1)])
+def test_fifo_launch_holds_the_blocks_in_rounds(n, bn, workers, tpw, rounds):
+    """The default launch: as many blocks in flight as the blocks (the
+    flush block included) or one CTA's threads allow, 4 cells a thread
+    where that keeps them in one round, else 8, and at least two where the
+    block has two; the chain is rounds × steps levels."""
+    launch = fifo_launch(n, bn)
+    assert (launch.workers, launch.threads_per_worker,
+            launch.rounds) == (workers, tpw, rounds)
+    assert launch.waves == rounds * bn
+    assert launch.threads <= MAX_THREADS and launch.threads % 32 == 0
+    assert bn == 1 or bn // tpw >= 2
+
+
+def _div3_fma(x: np.ndarray) -> np.ndarray:
+    """``csrc/stencil_fifo.cu``'s div3 on float32 ``x``: q = RN(x·R),
+    r = fma(−3, q, x), RN(q + r·R) with R = RN(1/3), the FMAs emulated
+    exactly in float64 (the products are exact there; the last sum's
+    rounding error is recovered by TwoSum and decides a float32 tie)."""
+    third = np.float64(np.float32(1.0) / np.float32(3.0))
+    x64 = x.astype(np.float64)
+    q = (x64 * third).astype(np.float32).astype(np.float64)
+    r = (x64 - 3.0 * q).astype(np.float32).astype(np.float64)
+    t = r * third
+    s = q + t
+    e = (q - (s - (s - q))) + (t - (s - q))
+    f = s.astype(np.float32)
+    up = np.nextafter(f, np.float32(np.inf))
+    dn = np.nextafter(f, np.float32(-np.inf))
+    fd = f.astype(np.float64)
+    f = np.where((s == (fd + up.astype(np.float64)) / 2) & (e > 0), up, f)
+    f = np.where((s == (fd + dn.astype(np.float64)) / 2) & (e < 0), dn, f)
+    return f
+
+
+def test_fifo_kernel_division_is_correctly_rounded():
+    """The kernel divides by 3 as an FMA-corrected product.  It equals
+    RN(x / 3) on every float32 of [1, 2) and at the ends of the range where
+    the kernel uses it (2^-100 ≤ |x| ≤ FLT_MAX); both sides scale by powers
+    of two in between, so one binade stands for them all.  RN(x / 3) is
+    float64's quotient rounded to float32: the double rounding is exact
+    here, as x / 3 is never within 2^-53 of a float32 midpoint unless it
+    is one."""
+    one = np.float32(1.0).view(np.uint32)
+    for start in range(int(one), int(one) + (1 << 23), 1 << 21):
+        x = np.arange(start, start + (1 << 21), dtype=np.uint32).view(
+            np.float32)
+        want = (x.astype(np.float64) / 3.0).astype(np.float32)
+        assert np.array_equal(_div3_fma(x), want)
+    edges = np.concatenate([
+        np.float32(2.0 ** -100) * (1 + np.arange(4096, dtype=np.float32)
+                                   * np.float32(2.0 ** -23)),
+        np.nextafter(np.float32(np.finfo(np.float32).max), np.float32(0),
+                     dtype=np.float32) - np.arange(4096, dtype=np.float32)
+        * np.float32(2.0 ** 104)])
+    edges = np.concatenate([edges, -edges])
+    want = (edges.astype(np.float64) / 3.0).astype(np.float32)
+    assert np.array_equal(_div3_fma(edges), want)
 
 
 # ---------------------------------------------------------- kernel 5 ------

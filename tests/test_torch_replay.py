@@ -13,6 +13,11 @@ against the JAX package.
 4. ``validate(backend="cuda", device="cpu")`` gives the reference backend's
    evidence: 14/17/35 replays and 3/8/12 negative rejections on
    jacobi-1d/jacobi-2d/heat-3d; wrong plans and undersized buffers raise.
+5. The replay kernel's plain version, a tiled scan, gives the sequential
+   walk's six counters exactly: on the verdict matrix and every stencil
+   channel, at rings of 1, half the slots needed and all of them, in the
+   three disciplines, in one tile and in tiles of a few events; and on
+   random event lists (hypothesis).
 
 The reference's own replay kernel does not run on this JAX version
 (`pl.load` is gone), so the port is held against the reference's
@@ -20,7 +25,10 @@ The reference's own replay kernel does not run on this JAX version
 """
 import dataclasses
 
+import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
@@ -39,7 +47,7 @@ from repro_torch.runtime import (BROADCAST_REGISTER, FIFO_STREAM,  # noqa: E402
                                  ValidationError, backend,
                                  lowering_for_pattern, trace_channel)
 from repro_torch.runtime.cuda_backend import (  # noqa: E402
-    RingOverflow, _build_events)
+    RingOverflow, _build_events, _replay_plain, _replay_walk, replay_events)
 
 from test_runtime import CASES, two_proc_ppn as ref_two_proc_ppn  # noqa: E402
 from test_torch_cuda import two_proc_ppn  # noqa: E402
@@ -176,3 +184,64 @@ def test_validate_cuda_catches_undersized_buffers():
     with pytest.raises(ValidationError, match="exceeds"):
         dataclasses.replace(a, sizes=shrunk).validate(backend="cuda",
                                                       device="cpu")
+
+
+# ------------------------------------------- the replay's tiled scan -----
+
+def assert_scan_equals_walk(ev, tiles=(4096, 3)):
+    """`_replay_plain` (in tiles of each size) against `_replay_walk` on the
+    event list ``ev`` at rings of 1, needed // 2 and needed slots, in the
+    three disciplines (FIFO, REGISTER, REORDER)."""
+    for ring in sorted({1, max(1, ev.needed // 2), ev.needed}):
+        args = [torch.from_numpy(a.astype(np.int32))
+                for a in (ev.kind, ev.value, ev.slot % ring)]
+        for order_op in (0, 1, 2):
+            want = _replay_walk(*args, ring, order_op).tolist()
+            for tile in tiles:
+                got = _replay_plain(*args, ring, order_op, tile=tile)
+                assert got.tolist() == want, (ring, order_op, tile)
+
+
+@pytest.mark.parametrize("src,verdict", CASES)
+def test_replay_scan_equals_walk_on_verdict_matrix(src, verdict):
+    ppn, ch = two_proc_ppn(src)
+    assert_scan_equals_walk(_build_events(trace_channel(ppn, ch)))
+
+
+@pytest.mark.parametrize("name", sorted(STENCILS))
+def test_replay_scan_equals_walk_on_stencil_channels(name):
+    a = analyze(get(name)).classify().fifoize().size().plan()
+    sizing = a.ctx.sizing(a.ppn)
+    for ch in a.ppn.channels:
+        trace = trace_channel(a.ppn, ch, sizing)
+        if trace.num_edges:
+            assert_scan_equals_walk(_build_events(trace), tiles=(4096, 61))
+
+
+@settings(max_examples=60, deadline=None)
+@given(events=st.lists(st.tuples(st.integers(0, 3), st.integers(-2, 8),
+                                  st.integers(0, 63)), max_size=300),
+       ring=st.integers(1, 64), order_op=st.integers(0, 2),
+       tile=st.sampled_from([1, 7, 64, 4096]))
+def test_replay_scan_equals_walk_on_random_lists(events, ring, order_op,
+                                                 tile):
+    """Kinds 0–3 (push, pop, retire, NOOP), values in a small range, slots
+    in a ring of 1–64 slots (so slots are touched many times in a tile and
+    rings are undersized), 0–300 events."""
+    kind, value, slot = (torch.tensor([e[i] for e in events],
+                                      dtype=torch.int32) for i in range(3))
+    slot = slot % ring
+    want = _replay_walk(kind, value, slot, ring, order_op)
+    assert torch.equal(_replay_plain(kind, value, slot, ring, order_op,
+                                     tile=tile), want)
+    assert torch.equal(replay_events(kind, value, slot, ring, order_op),
+                       want)
+
+
+def test_replay_events_checks_the_slots_of_cpu_tensors():
+    kind = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside the ring"):
+        replay_events(kind, kind, torch.tensor([0, 1, 2, 4],
+                                               dtype=torch.int32), 4, 0)
+    with pytest.raises(ValueError):
+        replay_events(kind, kind, kind, 0, 0)
