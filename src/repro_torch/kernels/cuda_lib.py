@@ -131,6 +131,13 @@ def on_device(device):
     return torch.cuda.device(device)
 
 
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned, as the kernels' 16-byte loads
+    and tensor maps need (a view may start at any element)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def raw_stream(device) -> int:
     """The current stream of ``device``, as a C entry point takes it."""
     import torch
@@ -165,10 +172,10 @@ STENCIL_FIFO = CudaKernel("stencil_fifo.cu", "stencil_fifo_f32",
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_fwd",
                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _I, _P])
-#: kernel 6 — chunkwise GLA/RWKV-6 time-mix (`csrc/gla_timemix.cu`)
+#: kernel 6 — chunk-parallel GLA/RWKV-6 time-mix (`csrc/gla_timemix.cu`):
+#: one call queues its three phases (counted as one launch)
 GLA_TIMEMIX = CudaKernel("gla_timemix.cu", "gla_timemix_fwd",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P])
+                         [_P] * 7 + [_I] * 7 + [_P])
 
 KERNELS = (RING_STENCIL, ADDRESSABLE_STEP, REPLAY, STENCIL_FIFO,
            FLASH_ATTENTION, GLA_TIMEMIX)

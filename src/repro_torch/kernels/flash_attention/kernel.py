@@ -25,7 +25,8 @@ from .ref import NEG, _scaled
 
 #: dtype → the kernel's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: head widths the kernel is instantiated for
+#: head widths the kernel is instantiated for; a narrower head is padded
+#: with zero channels to the next of them
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -43,11 +44,16 @@ def _check(q, k, v, bq: int, bk: int) -> None:
                          f"bk = {bk}")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned, as the kernel's tensor maps and
-    float4 loads need (a view may start at any element)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def padded_width(hd: int) -> int:
+    """The head width the kernel runs ``hd`` at: the least of `_HEAD_DIMS`
+    that holds it.  Zero channels in q and k add nothing to any score, and
+    zero channels in v give output columns that are sliced away; the scale
+    stays the true hd's.  ValueError past the widest."""
+    for width in _HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"flash_attention: the kernel takes hd up to "
+                     f"{_HEAD_DIMS[-1]}, got {hd}")
 
 
 def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -103,7 +109,8 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd) in q's dtype.
     Requires ``S % bq == S % bk == 0`` (ValueError otherwise).  Kernel 5,
     ``csrc/flash_attention.cu``, on CUDA tensors (float32, bf16 or f16, hd
-    32, 64 or 128; its own q and kv tiles are 128 rows);
+    up to 128, run at 32, 64 or 128 with zero channels; its own q and kv
+    tiles are 128 rows);
     `_flash_attention_plain` on CPU ones."""
     _check(q, k, v, bq, bk)
     if q.device.type == "cpu":
@@ -116,18 +123,19 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
         raise ValueError(f"flash_attention: the kernel takes one of "
                          f"{sorted(map(str, _DTYPES))} for q, k and v, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes hd in "
-                         f"{_HEAD_DIMS}, got {hd}")
+    width = padded_width(hd)
     if not (k.device == v.device == q.device):
         raise ValueError("flash_attention: q, k and v on different devices")
     scale = hd ** -0.5 if scale is None else scale
     scale = float(torch.tensor(scale, dtype=q.dtype))     # as JAX rounds it
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    if width != hd:
+        q, k, v = (torch.nn.functional.pad(a, (0, width - hd))
+                   for a in (q, k, v))
+    q, k, v = (cuda_lib.aligned(a) for a in (q, k, v))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         cuda_lib.FLASH_ATTENTION(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, k.shape[2], hd, int(causal), scale, _DTYPES[q.dtype],
+            H, k.shape[2], width, int(causal), scale, _DTYPES[q.dtype],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    return out
+    return out if width == hd else out[..., :hd].contiguous()

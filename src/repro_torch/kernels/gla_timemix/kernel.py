@@ -5,24 +5,40 @@ the sequence runs in chunks of ``chunk`` steps with an (hd × hd) float32
 state carried from one chunk to the next — the inter-chunk state stream is
 the t−1 → t FIFO channel the paper's classifier certifies for this layer;
 inside a chunk the work is three (C × hd) products instead of C sequential
-steps.  The intra-chunk decays are formed PAIRWISE, exp(cl_prev[t] −
-cl[s]) for t > s, whose exponents are ≤ 0: the factored form
+steps.  Every intra-chunk decay has an exponent ≤ 0: the factored form
 (r·e^{cl_prev})·(k·e^{−cl}) overflows float32 once a chunk's cumulative
 decay passes e⁸⁸ (fast channels at chunk ≥ 64).
+
+Only the state depends on earlier chunks, and it is a linear recurrence
+over them, S_c = e^{tot_c}·S_{c−1} + D_c.  So both versions run in three
+phases: (A) every chunk's increment D_c = (k·e^{tot−cl})ᵀ v and decay
+e^{tot_c}; (B) the scan over chunks, giving the state entering each; (C)
+every chunk's output from its inputs and that state.  Inside a chunk,
+rows come in sub-chunks of `SUB`: within each 8-row half of a diagonal
+sub-chunk the decays are formed pairwise, exp(cl_prev[t] − cl[s]);
+elsewhere below the diagonal they are factored through a row m between
+t and s (the last row of the earlier sub-chunk, or row 7 of the same
+one), as exp(cl_prev[t] − cl[m]) · exp(cl[m] − cl[s]), two exponents ≤ 0,
+and the block is a product.
 
 `gla_timemix` runs ``csrc/gla_timemix.cu`` on a CUDA tensor and
 `_gla_timemix_plain` on a CPU one.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
+import torch.nn.functional as F
 
 from .. import cuda_lib
 
 #: dtype → the kernel's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head widths the kernel is built for; others up to the largest are padded
+#: with zero channels
+_HEAD_DIMS = (16, 32, 64, 128)
+#: rows of a sub-chunk (the kernel's tensor-core tile); a chunk is padded
+#: with zero rows to a multiple of it
+SUB = 16
 
 
 def _check(r, k, v, logw, u, chunk: int) -> None:
@@ -38,42 +54,102 @@ def _check(r, k, v, logw, u, chunk: int) -> None:
         raise ValueError(f"S = {S} must be a multiple of chunk = {chunk}")
 
 
+def padded_width(hd: int) -> int:
+    """The head width the kernel runs ``hd`` at: the least of `_HEAD_DIMS`
+    that holds it.  Zero channels change nothing: r = k = 0 there adds no
+    term, v = 0 gives zero output columns, logw = 0 no decay."""
+    for width in _HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise RuntimeError(f"gla_timemix: the kernel takes hd up to "
+                       f"{_HEAD_DIMS[-1]}, got {hd}")
+
+
+def workspace_floats(B: int, S: int, H: int, hd: int, chunk: int) -> int:
+    """Floats of the kernel's workspace: each chunk's D_c (then the state
+    entering it), hd × hd, and its decay e^{tot_c}, hd."""
+    return B * H * (S // chunk) * (hd * hd + hd)
+
+
+def _factored(rc, kc, cl, cl_prev, rows: slice, cols: slice, m: int):
+    """att[rows, cols] through row m of cl (every col <= m < every row):
+    (r e^{cl_prev − cl[m]}) @ (k e^{cl[m] − cl})ᵀ, both exponents ≤ 0."""
+    cm = cl[..., m, None, :]
+    qd = rc[..., rows, :] * torch.exp(cl_prev[..., rows, :] - cm)
+    kd = kc[..., cols, :] * torch.exp(cm - cl[..., cols, :])
+    return qd @ kd.transpose(-1, -2)
+
+
+def _intra_chunk_att(rc, kc, cl, cl_prev) -> torch.Tensor:
+    """att[t, s] = Σ_d r[t,d] k[s,d] exp(cl_prev[t,d] − cl[s,d]) for t > s,
+    0 elsewhere, over (…, CP, hd) chunks (CP a multiple of `SUB`), in the
+    kernel's order: pairwise inside each 8-row half of a diagonal
+    sub-chunk; factored through row 7 for a sub-chunk's lower half against
+    its upper half, and through the last row of sub-chunk j for sub-chunk
+    i > j."""
+    *lead, CP, hd = rc.shape
+    half = SUB // 2
+    att = rc.new_zeros(*lead, CP, CP)
+    ti = torch.arange(half, device=rc.device)
+    below = (ti[:, None] > ti[None, :])[..., None]         # (half, half, 1)
+    for h0 in range(0, CP, half):
+        rh = slice(h0, h0 + half)
+        diff = cl_prev[..., rh, None, :] - cl[..., None, rh, :]
+        dec = torch.where(below, diff, -torch.inf)
+        att[..., rh, rh] = (rc[..., rh, None, :] * kc[..., None, rh, :]
+                            * torch.exp(dec)).sum(-1)
+    for i in range(CP // SUB):
+        i0 = SUB * i
+        att[..., i0 + half:i0 + SUB, i0:i0 + half] = _factored(
+            rc, kc, cl, cl_prev, slice(i0 + half, i0 + SUB),
+            slice(i0, i0 + half), i0 + half - 1)
+        for j in range(i):
+            att[..., i0:i0 + SUB, SUB * j:SUB * (j + 1)] = _factored(
+                rc, kc, cl, cl_prev, slice(i0, i0 + SUB),
+                slice(SUB * j, SUB * (j + 1)), SUB * (j + 1) - 1)
+    return att
+
+
 def _gla_timemix_plain(r, k, v, logw, u, *, chunk: int = 64
                        ) -> torch.Tensor:
-    """The plain PyTorch version: the reference kernel's chunk loop, for all
-    (B, H) at once."""
+    """The plain PyTorch version: the kernel's three phases, for all (B, H)
+    and chunks at once, on chunks padded with zero rows to a multiple of
+    `SUB`."""
     B, S, H, hd = r.shape
-    C = chunk
-    tr = lambda a: a.float().transpose(1, 2)               # (B, H, S, hd)
-    r32, k32, v32, lw32 = tr(r), tr(k), tr(v), tr(logw)
-    u32 = u.float()[None, :, None, :]                      # (1, H, 1, hd)
-    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    out = torch.empty((B, H, S, hd), dtype=torch.float32, device=r.device)
-    ti = torch.arange(C, device=r.device)
-    below = (ti[:, None] > ti[None, :])[..., None]         # (C, C, 1): t > s
-    for c0 in range(0, S, C):
-        rc, kc, vc, lw = (a[:, :, c0:c0 + C] for a in (r32, k32, v32, lw32))
-        cl = torch.cumsum(lw, dim=2)                       # inclusive
-        cl_prev = cl - lw                                  # exclusive
-        tot = cl[:, :, -1:]                                # (B, H, 1, hd)
-        y_inter = (rc * torch.exp(cl_prev)) @ state
-        diff = cl_prev[:, :, :, None, :] - cl[:, :, None, :, :]
-        dec = torch.where(below, diff, -torch.inf)         # (B,H,C,C,hd)
-        att = (rc[:, :, :, None, :] * kc[:, :, None, :, :]
-               * torch.exp(dec)).sum(-1)
-        y_intra = att @ vc
-        y_diag = (rc * u32 * kc).sum(-1, keepdim=True) * vc
-        out[:, :, c0:c0 + C] = y_inter + y_intra + y_diag
-        kdec = kc * torch.exp(tot - cl)
-        state = torch.exp(tot).transpose(-1, -2) * state + kdec.transpose(
-            -1, -2) @ vc
+    C, NC = chunk, S // chunk
+    CP = -(-C // SUB) * SUB
+
+    def chunks(a):                                  # (B, H, NC, CP, hd)
+        a = a.float().transpose(1, 2).reshape(B, H, NC, C, hd)
+        return F.pad(a, (0, 0, 0, CP - C))
+
+    rc, kc, vc, lw = (chunks(a) for a in (r, k, v, logw))
+    cl = torch.cumsum(lw, dim=3)                    # inclusive
+    cl_prev = F.pad(cl[..., :-1, :], (0, 0, 1, 0))  # exclusive
+    tot = cl[..., -1:, :]                           # (B, H, NC, 1, hd)
+    # A: each chunk's state increment and decay
+    delta = (kc * torch.exp(tot - cl)).transpose(-1, -2) @ vc
+    decay = torch.exp(tot).transpose(-1, -2)        # (B, H, NC, hd, 1)
+    # B: the state entering each chunk
+    entering = torch.empty_like(delta)
+    state = torch.zeros_like(delta[:, :, 0])
+    for c in range(NC):
+        entering[:, :, c] = state
+        state = decay[:, :, c] * state + delta[:, :, c]
+    # C: the outputs
+    y_inter = (rc * torch.exp(cl_prev)) @ entering
+    y_intra = _intra_chunk_att(rc, kc, cl, cl_prev) @ vc
+    y_diag = (rc * u.float()[None, :, None, None, :] * kc).sum(
+        -1, keepdim=True) * vc
+    out = (y_inter + y_intra + y_diag)[..., :C, :].reshape(B, H, S, hd)
     return out.to(r.dtype).transpose(1, 2)
 
 
 def gla_timemix(r, k, v, logw, u, *, chunk: int = 64) -> torch.Tensor:
     """r/k/v/logw: (B, S, H, hd); u: (H, hd) → (B, S, H, hd) in r's dtype.
     Requires ``S % chunk == 0`` (ValueError otherwise).  Kernel 6,
-    ``csrc/gla_timemix.cu``, on CUDA tensors (float32 or bf16);
+    ``csrc/gla_timemix.cu``, on CUDA tensors (float32 or bf16, hd up to
+    128; RuntimeError where a phase's tiles pass a CTA's shared memory);
     `_gla_timemix_plain` on CPU ones."""
     _check(r, k, v, logw, u, chunk)
     if r.device.type == "cpu":
@@ -88,12 +164,16 @@ def gla_timemix(r, k, v, logw, u, *, chunk: int = 64) -> torch.Tensor:
     if any(a.device != r.device for a in args):
         raise ValueError("gla_timemix: inputs on different devices")
     B, S, H, hd = r.shape
-    r, k, v, logw, u = (a.contiguous() for a in args)
+    width = padded_width(hd)
+    if width != hd:
+        args = tuple(F.pad(a, (0, width - hd)) for a in args)
+    r, k, v, logw, u = (cuda_lib.aligned(a) for a in args)
     out = torch.empty_like(r)
-    with torch.cuda.device(r.device):
+    ws = torch.empty(workspace_floats(B, S, H, width, chunk),
+                     dtype=torch.float32, device=r.device)
+    with cuda_lib.on_device(r.device):
         cuda_lib.GLA_TIMEMIX(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), out.data_ptr(), B, S, H, hd, chunk,
-            _DTYPES[r.dtype],
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    return out
+            u.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, H, width,
+            chunk, _DTYPES[r.dtype], 7, cuda_lib.raw_stream(r.device))
+    return out if width == hd else out[..., :hd].contiguous()

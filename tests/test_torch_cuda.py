@@ -279,6 +279,11 @@ ATTENTION_CASES = [
     (1, 128, 4, 2, 32, True, torch.float16, 1e-2),
     (1, 128, 4, 2, 64, True, torch.float16, 1e-2),
     (2, 256, 4, 2, 128, False, torch.bfloat16, 2e-2),
+    # head widths the kernel runs on zero-padded channels
+    (1, 128, 4, 2, 16, True, torch.float32, 1e-5),
+    (1, 128, 4, 2, 16, True, torch.bfloat16, 2e-2),
+    (2, 192, 4, 2, 80, True, torch.float32, 1e-5),
+    (2, 192, 4, 2, 80, True, torch.bfloat16, 2e-2),
 ]
 
 
@@ -296,6 +301,15 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, KV, hd, causal,
     torch.cuda.synchronize()
     assert got.dtype == dt
     assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_heads_past_128(cuda_device):
+    """hd > 128, past the widest head the kernel is built for, is refused
+    with a ValueError that names the limit."""
+    q = torch.zeros((1, 128, 2, 144), device=cuda_device)
+    with pytest.raises(ValueError, match="up to 128"):
+        flash_attention(q, q, q, causal=True)
 
 
 @pytest.mark.cuda
@@ -322,6 +336,13 @@ def test_flash_attention_takes_unaligned_views(dt, cuda_device):
     (1, 256, 2, 64, 64, 1.0, torch.float32),
     (2, 128, 4, 16, 128, 1.5, torch.float32),
     (1, 128, 2, 64, 64, 1.0, torch.bfloat16),
+    # hd = 128 at the default chunk (its tiles once passed a CTA's shared
+    # memory), chunk 16 at hd 16, and a padded hd with a chunk that is no
+    # multiple of the kernel's 16-row sub-chunks
+    (1, 128, 2, 128, 64, 1.0, torch.float32),
+    (1, 128, 2, 128, 64, 1.0, torch.bfloat16),
+    (1, 64, 2, 16, 16, 1.0, torch.float32),
+    (1, 96, 2, 20, 24, 1.0, torch.float32),
 ])
 def test_gla_timemix_kernel_matches_plain_version(B, S, H, hd, chunk,
                                                   decay_scale, dt,
@@ -349,15 +370,31 @@ def test_oversized_shared_memory_is_refused(cuda_device):
     """A tile whose shared memory passes what a CTA may hold (227 KB) is
     refused at its launch, and the refusal does not leak into the next
     launch: the wrappers have no shared-memory check of their own.  A Fig.
-    3 block of 30000 cells would take 3,750 threads and 480 KB of FIFO."""
+    3 block of 30000 cells would take 3,750 threads and 480 KB of FIFO; a
+    time-mix chunk of 256 at hd 128, 414 KB in its first phase and 678 KB
+    in its last."""
     x = torch.zeros(30000, device=cuda_device)
     with pytest.raises(RuntimeError):
         jacobi_fifo(x, 30000, 30000)
     r = torch.zeros((1, 256, 1, 128), device=cuda_device)
     u = torch.zeros((1, 128), device=cuda_device)
     with pytest.raises(RuntimeError):
-        gla_timemix(r, r, r, r, u, chunk=256)     # 990 KB
+        gla_timemix(r, r, r, r, u, chunk=256)
     small = torch.ones(64, device=cuda_device)
     torch.cuda.synchronize()
     assert torch.allclose(jacobi_fifo(small, 2, 2),
                           _jacobi_fifo_plain(small, 2, 2), **ATOL)
+    rs = torch.ones((1, 64, 1, 16), device=cuda_device)
+    got = gla_timemix(rs, rs, rs, -rs, rs[0, 0], chunk=64)
+    assert torch.allclose(got, _gla_timemix_plain(rs, rs, rs, -rs, rs[0, 0],
+                                                  chunk=64),
+                          rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_gla_timemix_refuses_heads_past_128(cuda_device):
+    """hd > 128, past the widest head the kernel is built for, is refused
+    with a RuntimeError that names the limit."""
+    r = torch.zeros((1, 64, 1, 160), device=cuda_device)
+    with pytest.raises(RuntimeError, match="up to 128"):
+        gla_timemix(r, r, r, r, r[0, 0], chunk=64)

@@ -14,7 +14,12 @@ same numpy inputs go to both, and the tolerances are the reference's:
    `test_flash_attention_sweep` cases, the chunked oracles agree, and the
    result does not depend on the block shape.
 3. The GLA time-mix's plain version and the sequential oracle equal the
-   JAX ones on the three reference cases, the fast-decay case included.
+   JAX ones on the three reference cases, the fast-decay case included,
+   at hd = 128 and at a chunk that is no multiple of the kernel's
+   sub-chunks; the plain version, which factors the decays between
+   sub-chunks, stays finite and near the oracle at decay scale 1.5.
+   Both wrappers' zero channels (the head widths the kernels are not built
+   for) change nothing.
 4. `attention_op` and `timemix_op` dispatch by device.
 """
 import numpy as np
@@ -31,8 +36,12 @@ from repro_torch.core import analyze  # noqa: E402
 from repro_torch.core.registry import get  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_op, attention_ref, flash_attention)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    kernel as fa_kernel)
 from repro_torch.kernels.gla_timemix import (  # noqa: E402
     gla_timemix, timemix_op, timemix_ref)
+from repro_torch.kernels.gla_timemix import (  # noqa: E402
+    kernel as gla_kernel)
 from repro_torch.kernels.stencil_fifo import (  # noqa: E402
     jacobi_1d, jacobi_fifo, jacobi_fifo_op, jacobi_naive_op)
 from repro_torch.kernels.stencil_fifo.kernel import (  # noqa: E402
@@ -217,6 +226,23 @@ def test_flash_attention_plain_is_exact_under_any_thread_count(threads):
         torch.set_num_threads(before)
 
 
+@pytest.mark.parametrize("hd,width", [(16, 32), (80, 128)])
+def test_flash_attention_zero_channels_change_nothing(hd, width):
+    """What the wrapper does on the card for a head width the kernel is not
+    built for: q, k and v padded with zero channels to ``width``, the
+    scale kept at the true hd's, the output sliced back."""
+    assert fa_kernel.padded_width(hd) == width
+    (q, _), (k, _), (v, _) = attention_inputs(1, 128, 4, 2, hd,
+                                              torch.float32, 9)
+    pad = [torch.nn.functional.pad(a, (0, width - hd)) for a in (q, k, v)]
+    got = flash_attention(*pad, causal=True, bq=64, bk=64, scale=hd ** -0.5)
+    want = flash_attention(q, k, v, causal=True, bq=64, bk=64)
+    assert torch.allclose(got[..., :hd], want, **ATOL)
+    assert not got[..., hd:].any()
+    with pytest.raises(ValueError, match="up to 128"):
+        fa_kernel.padded_width(129)
+
+
 def test_flash_attention_block_shapes():
     """`tests/test_kernels.py::test_flash_attention_block_shapes` on the
     port: the result does not depend on the block shape."""
@@ -244,6 +270,8 @@ def gla_inputs(B, S, H, hd, decay_scale, seed=11):
     (2, 128, 3, 32, 32, 0.5),
     (1, 256, 2, 64, 64, 1.0),     # fast decays: overflow regression case
     (2, 128, 4, 16, 128, 1.5),
+    (1, 128, 2, 128, 64, 1.0),    # hd = 128 at the default chunk
+    (1, 96, 2, 16, 24, 1.0),      # a chunk padded to whole sub-chunks
 ])
 def test_gla_timemix_matches_jax(B, S, H, hd, chunk, decay_scale):
     """`tests/test_kernels.py::test_gla_timemix_matches_sequential`'s cases:
@@ -261,6 +289,36 @@ def test_gla_timemix_matches_jax(B, S, H, hd, chunk, decay_scale):
     np.testing.assert_allclose(as_np(ref), as_np(jax_gla.timemix_ref(*j_in)),
                                **tol)
     np.testing.assert_allclose(as_np(got), as_np(ref), **tol)
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_gla_timemix_factored_decays_stay_finite(chunk):
+    """Decays drawn at scale 1.5 (cumulative decays far past e^88 within a
+    chunk): the plain version, which factors the decays between
+    sub-chunks through the last row of the earlier one, stays finite and
+    within the reference's 2e-3 of the sequential oracle."""
+    t_in = [t for t, _ in gla_inputs(1, 256, 2, 32, 1.5, seed=5)]
+    got = gla_timemix(*t_in, chunk=chunk)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(as_np(got), as_np(timemix_ref(*t_in)),
+                               atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("hd,width", [(8, 16), (20, 32), (100, 128)])
+def test_gla_timemix_zero_channels_change_nothing(hd, width):
+    """What the wrapper does on the card for a head width the kernel is not
+    built for: every input padded with zero channels to ``width`` (zero
+    r and k add no term, zero v gives zero columns, zero logw no decay),
+    the output sliced back."""
+    assert gla_kernel.padded_width(hd) == width
+    t_in = [t for t, _ in gla_inputs(1, 64, 2, hd, 1.0)]
+    pad = [torch.nn.functional.pad(a, (0, width - hd)) for a in t_in]
+    got = gla_timemix(*pad, chunk=32)
+    assert torch.allclose(got[..., :hd], gla_timemix(*t_in, chunk=32),
+                          **ATOL)
+    assert not got[..., hd:].any()
+    with pytest.raises(RuntimeError, match="up to 128"):
+        gla_kernel.padded_width(129)
 
 
 def test_gla_timemix_rejects_bad_shapes():
