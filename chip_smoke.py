@@ -75,6 +75,31 @@ failure:
    is
    ``F.scaled_dot_product_attention`` with k and v repeated to H heads so
    that head h reads kv head h % KV, as the reference groups them.
+11. The design-space exploration on the card (`repro_torch.dse`):
+   ``default_experiment("stencils-card")`` over jacobi-1d, jacobi-2d and
+   heat-3d, 12 tilings (b = 1..16) x 2 topologies x 3 sizes = 216 points
+   in 72 groups, the first size point of each group measured
+   (``repeats`` 3) by ``cuda_backend.measure_compiled`` through the fused
+   ring or the addressable fallback, as the plan says.  Three acts against
+   a fresh store under ``build/dse``, in this process (one process owns
+   the card while it times): a run stopped after 48 points, the resume,
+   and a run that must compute nothing.  No point may be an error, all 72
+   measurements must be there, none skipped, each on this card in mode
+   ``fifo-ring`` or ``addressable``, and the ring and addressable launch
+   counts, set to 0 before the acts and read after them, must be exactly
+   what those measurements launch (their ``calls``, the warm-up included:
+   one ring launch a call, one addressable launch a step).  Each measured
+   geometry's output, on the input it was timed on, is then held to the
+   kernel's plain version (``TOL``).  The measured seconds are the
+   device's (`measure_compiled` holds the stream while the host queues the
+   timed calls).  Printed per kernel: the points, the frontier over
+   ``predicted_s`` and over ``measured_s`` beside `BENCH_dse.json`'s
+   (taken on a TPU host), the measured seconds by mode; the acts' host
+   seconds; jacobi-1d's parametric template build and per-size
+   evaluation times, each evaluation held to a concrete analysis.  Then
+   the same grid, roofline only, through the `PoolManager`'s 4 spawned
+   workers while CUDA is live here, must give the same
+   ``(fifo_fraction, total_slots)`` at every point.
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -234,6 +259,12 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "gla_timemix": "src/repro_torch/csrc/gla_timemix.cu",
 }
+#: phase 11: the DSE over the three stencils `STENCIL_PROGRAMS` covers, its
+#: first act's point budget, and the pool run's workers
+DSE_KERNELS = ("jacobi-1d", "jacobi-2d", "heat-3d")
+DSE_BUDGET = 48
+DSE_POOL_WORKERS = 4
+DSE_REPEATS = 3
 #: kernels redesigned for Hopper after their first port
 REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
               "flash_attention", "gla_timemix"}
@@ -319,6 +350,203 @@ def hgmma_counts(library: Path):
         elif fn and "HGMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def dse_phase() -> None:
+    """Phase 11: the design-space exploration on the card (see the
+    docstring).  Raises on any failed check."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core import analyze, report_payload, symbolic
+    from repro_torch.core.registry import get
+    from repro_torch.dse import (ArtifactStore, DSEService, PoolManager,
+                                 default_experiment)
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.runtime import cuda_backend as cb
+    from repro_torch.runtime import cuda_codegen as cg
+
+    kernels = list(DSE_KERNELS)
+    exp = default_experiment(
+        "stencils-card", kernels=kernels,
+        measure={"kernels": kernels, "repeats": DSE_REPEATS,
+                 "max_points": 1})
+    groups = exp.groups()
+    total = sum(len(g.size_envs) for g in groups)
+    # the measured points: the first size point of every group
+    requested = {g.points()[0].key for g in groups}
+    say(f"phase 11 experiment {exp.experiment_id}: {len(kernels)} kernels, "
+        f"{len(groups)} groups, {total} points, {len(requested)} measured")
+    root = ROOT / "build" / "dse"
+    shutil.rmtree(root, ignore_errors=True)
+    svc = DSEService(exp, ArtifactStore(str(root / "card")),
+                     manager="inline")
+    counted = {"ring_stencil": cuda_lib.RING_STENCIL,
+               "addressable_step": cuda_lib.ADDRESSABLE_STEP}
+    for k in counted.values():
+        k.launches = 0
+    acts = {}
+    for act, budget in (("budgeted", DSE_BUDGET), ("resume", None),
+                        ("verify", None)):
+        t0 = time.perf_counter()
+        summary = svc.run(max_points=budget)
+        summary["host_s"] = time.perf_counter() - t0
+        acts[act] = summary
+        say(f"phase 11 act {act}: " + json.dumps(
+            {k: summary[k] for k in ("points_total", "from_store",
+                                     "computed", "errors", "stopped_early",
+                                     "pending", "host_s")}))
+        check(summary["errors"] == 0, f"DSE act {act}: {summary['errors']} "
+              f"error point(s)")
+    check(acts["budgeted"]["computed"] == DSE_BUDGET
+          and acts["budgeted"]["stopped_early"],
+          f"budgeted act: {acts['budgeted']}")
+    check(acts["resume"]["computed"] == total - DSE_BUDGET
+          and acts["resume"]["pending"] == 0, f"resume: {acts['resume']}")
+    check(acts["verify"]["computed"] == 0
+          and acts["verify"]["from_store"] == total,
+          f"verify: {acts['verify']}")
+    launches = {n: k.launches for n, k in counted.items()}
+
+    points = list(svc.store.iter_points(exp.experiment_id))
+    check(len(points) == total, f"{len(points)} points in the store")
+    card = torch.cuda.get_device_name(0)
+    measured = {p["key"]: p["measured"] for p in points if "measured" in p}
+    check(set(measured) == requested,
+          f"measured {len(measured)} of the {len(requested)} requested "
+          f"points")
+    skipped = [n for p in points for n in p["provenance"]["notes"]
+               if n.startswith("measure skipped")]
+    check(not skipped, f"measurements skipped: {skipped[:3]}")
+    # what each mode's measurements launch: a warm-up and the repeats, one
+    # ring launch a call, or one addressable launch a step
+    want = {"ring_stencil": 0, "addressable_step": 0}
+    for m in measured.values():
+        check(m["device"] == card and m["mode"] in ("fifo-ring",
+                                                    "addressable"),
+              f"measurement on {m['device']} in mode {m['mode']}")
+        check(0 < m["seconds"] < float("inf"), f"measured {m}")
+        if m["mode"] == "fifo-ring":
+            want["ring_stencil"] += m["calls"]
+        else:
+            want["addressable_step"] += m["calls"] * m["steps"]
+    say(f"phase 11 launches in the acts: {json.dumps(launches)} (the "
+        f"measurements' modes ask for {json.dumps(want)})")
+    check(launches == want and launches["ring_stencil"] > 0,
+          f"launches {launches}, measurements ask for {want}")
+
+    # what each measured geometry computes, on the input it was timed on,
+    # against the kernel's plain version (after the counted acts)
+    geometries = sorted(
+        {(g.kernel,) + tuple(measured[g.points()[0].key][k]
+                             for k in ("mode", "n_items", "block", "steps"))
+         for g in groups})
+    worst = 0.0
+    for kernel, mode, n, block, steps in geometries:
+        p = cg.STENCIL_PROGRAMS[kernel]
+        x = cb.measure_input(p, n, block, "cuda")
+        got = cg.CompiledStencil(program=p, mode=mode)(x, steps, block)
+        if mode == "fifo-ring":
+            plain = cg._ring_plain(x, p, steps, block, steps + 1,
+                                   2 * p.radius)
+        else:
+            plain = x
+            for _ in range(steps):
+                plain = cg._addressable_plain(plain, p)
+        err = float((got.double() - plain.double()).abs().max())
+        check(torch.allclose(got, plain, **TOL), f"phase 11 {kernel} {mode} "
+              f"n {n} block {block} steps {steps}: err {err}")
+        worst = max(worst, err)
+    say(f"phase 11 the {len(geometries)} measured geometries, each held to "
+        f"its plain version on the input it was timed on: max abs err "
+        f"{worst:.3g}")
+
+    bench = json.loads((ROOT / "BENCH_dse.json").read_text())["frontiers"]
+    doc = svc.frontier()
+    for kernel in kernels:
+        kdoc = doc["kernels"][kernel]
+        ref = bench.get(kernel, {})
+        kms, by_tiling = {}, {}
+        for g in groups:                # in the axes' order: b = 1..16
+            m = measured[g.points()[0].key]
+            if g.kernel == kernel:
+                kms.setdefault(m["mode"], []).append(m["seconds"])
+                # the ring's levels: (blocks + 1) x steps, each a barrier
+                levels = (m["n_items"] // m["block"] + 1) * m["steps"]
+                by_tiling.setdefault(g.topology, {})[g.tiling_id] = [
+                    m["seconds"], m["n_items"], m["block"], m["steps"],
+                    levels]
+        say(f"phase 11 {kernel}: {kdoc['points']} points, frontier over "
+            f"predicted_s {len(kdoc['predicted']['frontier'])} (TPU "
+            f"reference {ref.get('frontier')}), over measured_s "
+            f"{len(kdoc['measured']['frontier'])} (TPU reference "
+            f"{ref.get('measured_frontier', 'none')}); measured s by mode, "
+            f"median [min, max]: " + json.dumps(
+                {mode: [statistics.median(t), min(t), max(t)]
+                 for mode, t in kms.items()}))
+        cells = [c for d in by_tiling.values() for c in d.values()]
+        fit = statistics.linear_regression([c[4] for c in cells],
+                                           [c[0] for c in cells])
+        say(f"phase 11 {kernel} measured by tiling, [s, n, block, steps, "
+            f"levels]: " + json.dumps(by_tiling) + f"; least squares s = "
+            f"t0 + c x levels: t0 = {fit.intercept:.4g} s, c = "
+            f"{fit.slope:.4g} s")
+
+    # analysis time (a): jacobi-1d's template, then one evaluation a size,
+    # each held to a concrete analysis at that size
+    case = get("jacobi-1d")
+    t0 = time.perf_counter()
+    pa = analyze(case, sizes=symbolic).classify().fifoize().size().plan()
+    pa.prepare()
+    build_s = time.perf_counter() - t0
+    check(pa.status == "symbolic", f"jacobi-1d template: {pa.status}")
+    t = pa._template
+    evals = []
+    for k in range(3):
+        env = {p: t["theta"][p] + k * t["strides"][p]
+               for p in pa.symbolic_params}
+        t0 = time.perf_counter()
+        got = report_payload(pa.evaluate(**env))
+        evals.append(time.perf_counter() - t0)
+        want_doc = report_payload(
+            analyze(case.kernel, params=env, tilings=case.tilings)
+            .classify().fifoize().size().plan().report())
+        check(got == want_doc, f"jacobi-1d template at {env} differs from "
+              f"the concrete analysis")
+    pa.release()
+    say(f"phase 11 jacobi-1d parametric template: built in {build_s:.4f} s, "
+        f"evaluated in {json.dumps(evals)} s at three lattice sizes (each "
+        f"equal to a concrete analysis)")
+
+    # the same grid, roofline only, through spawned pool workers while CUDA
+    # is live in this process
+    plain = default_experiment("stencils-card", kernels=kernels)
+    pool = PoolManager(max_workers=DSE_POOL_WORKERS)
+    try:
+        check(pool._pool._mp_context.get_start_method() == "spawn",
+              "the pool does not spawn its workers")
+        t0 = time.perf_counter()
+        psvc = DSEService(plain, ArtifactStore(str(root / "pool")),
+                          manager=pool)
+        summary = psvc.run()
+        pool_s = time.perf_counter() - t0
+    finally:
+        pool.close()
+    check(summary["errors"] == 0 and summary["computed"] == total,
+          f"pool run: {summary}")
+
+    def axes(docs) -> dict:
+        return {p["key"]: (p["metrics"]["fifo_fraction"],
+                           p["metrics"]["total_slots"]) for p in docs}
+
+    card_axes = axes(points)
+    pool_axes = axes(psvc.store.iter_points(plain.experiment_id))
+    check(pool_axes == card_axes, "the pool run's (fifo_fraction, "
+          "total_slots) differ from the inline run's")
+    say(f"phase 11 pool run ({DSE_POOL_WORKERS} spawned workers, roofline "
+        f"only): {summary['computed']} points in {pool_s:.3f} s host clock, "
+        f"(fifo_fraction, total_slots) equal at every point")
 
 
 def main() -> int:
@@ -1140,6 +1368,11 @@ def main() -> int:
            if r.get("vs_library", 0.0) > 1 else "")
         + f"{r['launches']} x (time - bound) = {r['excess_ms']:.4f} ms"
         for r in order))
+
+    # --------------------------------------------------------- phase 11 --
+    t0 = time.perf_counter()
+    dse_phase()
+    say(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,10 +5,10 @@ rwkv6-1.6b's width (H = 32, hd = 64) and at the same model width in heads
 of 128 (H = 16), B = 1, S = 4096, chunk 64, in float32 and bf16, decays
 drawn at scale 1.0: each phase alone (A, the chunks' state increments; B,
 the state scan; C, the outputs), the whole call's three launches, each
-queued back to back and timed with CUDA events (the device's time), and
-the wrapper's call.  Each output is first held against the plain version
-(2e-3 in float32, 2e-2 in bf16).  Needs a CUDA device and ``nvcc``;
-without a device it exits 2.
+queued back to back and timed with CUDA events (the device's time), the
+wrapper's call, and the plain version's call.  Each output is first held
+against the plain version (2e-3 in float32, 2e-2 in bf16).  Needs a CUDA
+device and ``nvcc``; without a device it exits 2.
 
     PYTHONPATH=src python -m repro_torch.bench.gla_phases [--seed N]
 """
@@ -71,6 +71,8 @@ def rows(seed: int = 0):
                     ws.data_ptr(), B, S, H, hd, C, gla._DTYPES[dt], mask,
                     stream, launches=0), 20)
         row["call_ms"] = cuda_ms(lambda: gla.gla_timemix(*ins, chunk=C), 20)
+        row["plain_ms"] = cuda_ms(
+            lambda: gla._gla_timemix_plain(*ins, chunk=C), 3)
         out.append(row)
     return out
 

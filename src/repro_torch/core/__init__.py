@@ -1,8 +1,8 @@
 """The paper's contribution: PPN channel classification + FIFO recovery.
 
 A copy of the reference package's jax-free analysis layers under the same
-names (the port imports nothing of it); parametric analysis and tile sweeps
-are not in this slice.
+names (the port imports nothing of it), parametric analysis and tile sweeps
+included.
 
 Public API:
     affine / polyhedron / relation  — Presburger-lite machinery
@@ -21,6 +21,8 @@ from .analysis import (SCHEMA_VERSION, Analysis, AnalysisContext,
                        AnalysisReport, ChannelPlan, analyze)
 from .dataflow import Access, DepEdges, Kernel, Statement, direct_dependences
 from .deprecation import reset_deprecation_warnings
+from .parametric import (ParametricAnalysis, ParametricFallbackWarning,
+                         SizePoly, symbolic)
 from .patterns import (ChannelClassifier, Pattern, ProcSpace, classify_channel,
                        classify_channels, classify_edges, classify_symbolic,
                        in_order_symbolic, unicity_symbolic)
@@ -39,25 +41,30 @@ from .sizing import (SizingContext, channel_capacity, pow2_size,
 from .split import (FifoizeReport, NotApplicable, fifoize, fifoize_relation,
                     split_by_tile_pair, split_channel, split_covers,
                     split_relation)
+from .sweep import (SweepJob, report_payload, run_job, sweep, sweep_parallel)
 from .tiling import (Tiling, rectangular, rescale_tilings, unit_tilings)
 
 __all__ = [
     "Access", "AffineSchedule", "Analysis", "AnalysisContext",
     "AnalysisReport", "Channel", "ChannelClassifier", "ChannelPlan",
     "Constraint", "DepEdges", "DomainIndex", "FMBlowup", "FifoizeReport",
-    "Kernel", "LinExpr", "NotApplicable", "PPN", "Pattern", "Polyhedron",
-    "ProcSpace", "Process", "Relation", "SCHEMA_VERSION", "SizingContext",
-    "Statement", "Tiling", "analyze", "PROLOGUE_C0", "boundary_schedule",
+    "Kernel", "LinExpr", "NotApplicable", "PPN", "ParametricAnalysis",
+    "ParametricFallbackWarning", "Pattern", "Polyhedron", "ProcSpace",
+    "Process", "Relation", "SCHEMA_VERSION", "SizePoly", "SizingContext",
+    "Statement",
+    "Tiling", "analyze", "SweepJob", "PROLOGUE_C0", "boundary_schedule",
     "ceil_div", "channel_capacity", "classify_channel",
     "classify_channels", "classify_edges", "classify_symbolic",
     "clear_polyhedron_cache", "direct_dependences", "eq",
     "export_polyhedron_cache", "fifoize", "fifoize_relation", "floor_div",
     "ge", "gt", "in_order_symbolic", "le", "load_polyhedron_cache", "lt",
     "epilogue_c0", "merge_polyhedron_cache", "peek_polyhedron_cache",
-    "polyhedron_cache_pin", "polyhedron_cache_stats",
-    "pow2_size", "rectangular", "rescale_tilings", "resolve_case",
-    "reset_deprecation_warnings", "save_polyhedron_cache",
+    "polyhedron_cache_pin",
+    "polyhedron_cache_stats",
+    "pow2_size", "rectangular", "report_payload", "rescale_tilings",
+    "resolve_case",
+    "reset_deprecation_warnings", "run_job", "save_polyhedron_cache",
     "size_channels", "split_by_tile_pair", "split_channel", "split_covers",
-    "split_relation", "tick_capacity", "unicity_symbolic", "unit_tilings",
-    "v",
+    "split_relation", "sweep", "sweep_parallel", "symbolic",
+    "tick_capacity", "unicity_symbolic", "unit_tilings", "v",
 ]

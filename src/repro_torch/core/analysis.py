@@ -487,16 +487,24 @@ def analyze(kernel: Union[Kernel, PPN, Any],
     compiled and validated here, so malformed specs fail with diagnostics
     before any analysis runs).
 
+    ``sizes=symbolic`` (the sentinel from `repro_torch.core.parametric`) switches
+    to the parametric pipeline: the kernel's declared size parameters stay
+    symbolic and the returned `ParametricAnalysis` proves/fits the whole
+    report once, after which ``.evaluate(N=..., T=...)`` instantiates it for
+    any concrete size in microseconds (byte-identical to a concrete run).
     A mapping ``sizes={"N": 32}`` is shorthand for concrete ``params``
-    overrides.  Symbolic sizes (the parametric pipeline) are not ported
-    yet: any other ``sizes`` raises `NotImplementedError`."""
+    overrides."""
     if sizes is not None:
+        from .parametric import ParametricAnalysis, symbolic
         if isinstance(sizes, Mapping):
             return analyze(kernel, params=dict(params or {}, **sizes),
                            tilings=tilings)
-        raise NotImplementedError(
-            f"analyze(sizes={sizes!r}): symbolic sizes are not ported yet: "
-            f"ROADMAP queue 1, 'Parametric analysis and sweeps'")
+        if sizes is not symbolic and sizes != "symbolic":
+            raise ValueError(
+                f"sizes must be the `symbolic` sentinel (or a concrete "
+                f"mapping), got {sizes!r}")
+        return ParametricAnalysis.start(kernel, params=params,
+                                        tilings=tilings)
     if hasattr(kernel, "__kernelcase__"):
         kernel = kernel.__kernelcase__()
     if isinstance(kernel, PPN):

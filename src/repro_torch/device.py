@@ -14,6 +14,10 @@ PEAK_FLOPS_TF32 = 495e12           # FLOP/s, TF32 on the tensor cores
 # float32 products at float32's accuracy: the faster of the CUDA cores and
 # three TF32 passes on the tensor cores (hi*hi + hi*lo + lo*hi)
 PEAK_FLOPS_FP32_PRODUCTS = max(PEAK_FLOPS_FP32, PEAK_FLOPS_TF32 / 3)
+# B/s, shared memory over the whole card: 132 SMs x 128 B a clock (32 banks
+# of 4 B, the white paper's per-SM shared-memory rate) x the 1.98 GHz boost
+# clock; where the generated ring keeps its channels
+SMEM_BW = 132 * 128 * 1.98e9
 
 
 def roofline_seconds(bytes_moved: float, flops: float,

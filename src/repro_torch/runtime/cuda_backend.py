@@ -331,12 +331,40 @@ CUDA.compile = compile_analysis
 
 # ------------------------------------------------------------ timing hook ---
 
+#: how long the stream is held before the timed calls, at first: far longer
+#: than the host takes to queue a few wrapper calls, doubled while it is not
+MEASURE_STALL_S = 2e-3
+MEASURE_STALL_TRIES = 8
+#: the clock the stall's cycles are counted at (the H100 SXM's boost)
+_STALL_CLOCK_HZ = 1.98e9
+
+
+def measure_input(program, n_items: int, block: int, device,
+                  seed: int = 0) -> torch.Tensor:
+    """The array `measure_compiled` times ``program`` on: ``n_items`` items
+    of inner widths ``max(4, block)``, standard normal from ``seed``."""
+    shape = (n_items,) + tuple(max(4, block)
+                               for _ in range(program.inner_rank))
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+
+
 def measure_compiled(compiled, n_items: int, steps: int, block: int,
                      repeats: int = 1, seed: int = 0) -> dict:
     """Time one compiled stencil (`Analysis.compile(backend="cuda")`) on a
-    concrete geometry with CUDA events: best-of-``repeats`` after a warm-up
+    concrete geometry on the device: best-of-``repeats`` after a warm-up
     call, the `bench_pallas` discipline.  This is the DSE's *measured* cost
     channel.
+
+    The seconds are the device's, not the host's: the stream is held by a
+    spin (``torch.cuda._sleep``) while the host queues the ``repeats``
+    calls, each between two CUDA events, so the card runs them back to
+    back and an event interval is one call's kernels (for the addressable
+    fallback, its ``steps`` launches and the gaps between them).  Where the
+    card reached the first event before the host had queued the last call,
+    the window is taken again with a stall twice as long; ``calls`` counts
+    every wrapper call made, the warm-up included.
 
     Raises ValueError on a geometry the kernel cannot run (`n_items` not a
     multiple of ``block``, skew misalignment) — callers decide whether to
@@ -352,23 +380,34 @@ def measure_compiled(compiled, n_items: int, steps: int, block: int,
     if torch.device(compiled.device).type != "cuda":
         raise ValueError(f"measure_compiled times on a CUDA device, not "
                          f"{compiled.device!r}")
-    shape = (n_items,) + tuple(max(4, block) for _ in range(p.inner_rank))
-    rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-        compiled.device)
+    x = measure_input(p, n_items, block, compiled.device, seed)
+    reps = max(1, repeats)
 
     compiled(x, steps, block)                     # build + warm
-    best = float("inf")
-    for _ in range(max(1, repeats)):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        compiled(x, steps, block)
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / 1e3)
+    calls, stall = 1, MEASURE_STALL_S
+    with torch.cuda.device(x.device):
+        for _ in range(MEASURE_STALL_TRIES):
+            torch.cuda.synchronize()
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(reps + 1)]
+            torch.cuda._sleep(int(stall * _STALL_CLOCK_HZ))
+            events[0].record()
+            for e in events[1:]:
+                compiled(x, steps, block)
+                e.record()
+            calls += reps
+            queued_ahead = not events[0].query()
+            events[-1].synchronize()
+            if queued_ahead:
+                break
+            stall *= 2
+        else:
+            raise RuntimeError(
+                f"measure_compiled: the host did not queue {reps} call(s) "
+                f"within a stall of {stall / 2:.3g} s")
+    best = min(a.elapsed_time(b) for a, b in zip(events, events[1:])) / 1e3
     return {"seconds": best, "mode": compiled.mode,
             "n_items": n_items, "steps": steps, "block": block,
             "device": torch.cuda.get_device_name(torch.device(
                 compiled.device)),
-            "repeats": max(1, repeats)}
+            "repeats": reps, "calls": calls}

@@ -1,8 +1,9 @@
 """The port's analysis path (`src/repro_torch/`) against the JAX package.
 
 1. Isolation: the port imports neither jax nor `repro`; a subprocess with
-   both blocked runs the whole main path, and the Fig. 3, attention and
-   time-mix entry points, on the CPU.
+   both blocked runs the whole main path, the Fig. 3, attention and
+   time-mix entry points, a symbolic template and one DSE group, on the
+   CPU.
 2. Report parity: on all 15 PolyBench kernels,
    ``classify → fifoize → size → plan → validate → report`` gives the same
    `AnalysisReport` in both packages (apart from the cache counters).
@@ -25,7 +26,8 @@ import repro.core.polybench  # noqa: F401,E402  (populate the registry)
 import repro_torch.core.polybench  # noqa: F401,E402
 from repro.core import analyze as ref_analyze  # noqa: E402
 from repro.core.registry import get as ref_get, kernel_names  # noqa: E402
-from repro_torch.core import AnalysisReport, analyze  # noqa: E402
+from repro_torch.core import (AnalysisReport, ParametricAnalysis,  # noqa: E402
+                              analyze)
 from repro_torch.core.registry import get  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -99,6 +101,19 @@ assert attention_op(q, k, k, causal=True, use_kernel=True).shape == q.shape
 r = t(1, 32, 2, 16)
 assert timemix_op(r, r, r, -r.abs(), t(2, 16), chunk=16,
                   use_kernel=True).shape == r.shape
+from repro_torch.core import symbolic
+pa = analyze(get("jacobi-1d"), sizes=symbolic).classify().fifoize().size()
+pa = pa.plan()
+assert pa.evaluate(N=20, T=12).params == {"N": 20, "T": 12}
+assert pa.status == "symbolic", pa.status
+from repro_torch.dse import default_experiment, run_group
+task = default_experiment("blocked", kernels=["jacobi-1d"], tile_sizes=[2],
+                          topologies=["sequential"], size_count=2,
+                          measure={"kernels": ["jacobi-1d"], "max_points": 1,
+                                   "device": "cpu"}).groups()[0]
+rows = run_group(task.as_dict())
+assert [r["provenance"]["size_mode"] for r in rows] == ["parametric"] * 2
+assert "measure skipped" in rows[0]["provenance"]["notes"][0], rows[0]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
 assert not leaked, leaked
@@ -153,8 +168,10 @@ def test_unported_modes_name_their_roadmap_item():
     for mode in ("selftimed", "faults"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             a.validate(mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        analyze(get("jacobi-1d"), sizes="symbolic")
+    assert isinstance(analyze(get("jacobi-1d"), sizes="symbolic"),
+                      ParametricAnalysis)
+    with pytest.raises(ValueError, match="symbolic"):
+        analyze(get("jacobi-1d"), sizes="bogus")
     assert analyze(get("jacobi-1d"), sizes={"N": 12}).ppn.params["N"] == 12
 
 

@@ -23,6 +23,8 @@ from repro_torch.kernels.stencil_fifo.kernel import (  # noqa: E402
     MAX_THREADS, _jacobi_fifo_plain, _jacobi_fifo_walk, _jacobi_fifo_with,
     fifo_launch, jacobi_fifo)
 from repro_torch.core.schedule import AffineSchedule  # noqa: E402
+from repro_torch.dse import (PoolManager, default_experiment,  # noqa: E402
+                             run_group)
 from repro_torch.runtime import trace_channel  # noqa: E402
 from repro_torch.runtime.cuda_backend import (  # noqa: E402
     REPLAY_TILE, _build_events, _replay_plain, _replay_walk, replay_events)
@@ -398,3 +400,53 @@ def test_gla_timemix_refuses_heads_past_128(cuda_device):
     r = torch.zeros((1, 64, 1, 160), device=cuda_device)
     with pytest.raises(RuntimeError, match="up to 128"):
         gla_timemix(r, r, r, r, r[0, 0], chunk=64)
+
+
+def _measured_group(name: str) -> dict:
+    """The first group of a one-tiling DSE over ``name`` (tile size 2,
+    sequential), its first size point measured on the card."""
+    exp = default_experiment("card", kernels=[name], tile_sizes=[2],
+                             topologies=["sequential"], size_count=1,
+                             measure={"kernels": [name], "repeats": 1,
+                                      "max_points": 1})
+    return exp.groups()[0].as_dict()
+
+
+def _assert_measured_on_the_card(results) -> None:
+    first = results[0]
+    assert "error" not in first, first.get("error")
+    assert not [n for n in first["provenance"]["notes"]
+                if n.startswith("measure skipped")]
+    m = first["measured"]
+    assert m["device"] == torch.cuda.get_device_name(0)
+    assert m["mode"] in ("fifo-ring", "addressable") and m["seconds"] > 0
+    assert first["metrics"]["measured_s"] == m["seconds"]
+    assert all("measured" not in r for r in results[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(STENCIL_PROGRAMS))
+def test_dse_group_is_measured_on_the_card(name, cuda_device):
+    before = cuda_lib.RING_STENCIL.launches
+    results = run_group(_measured_group(name))
+    _assert_measured_on_the_card(results)
+    m = results[0]["measured"]
+    assert m["calls"] >= 2                       # the warm-up and 1 timed
+    if m["mode"] == "fifo-ring":
+        assert cuda_lib.RING_STENCIL.launches - before == m["calls"]
+
+
+@pytest.mark.cuda
+def test_dse_pool_measures_after_cuda_is_live(cuda_device):
+    """Pool workers are spawned: a measured group still runs on the card
+    after this process has initialised CUDA (a forked child could not)."""
+    torch.zeros(1, device=cuda_device)
+    torch.cuda.synchronize()
+    pool = PoolManager(max_workers=1)
+    try:
+        pool.submit("jacobi-1d", _measured_group("jacobi-1d"))
+        (task_id, results), = list(pool.drain())
+    finally:
+        pool.close()
+    assert task_id == "jacobi-1d"
+    _assert_measured_on_the_card(results)

@@ -276,6 +276,20 @@ def test_measure_compiled_refuses_the_cpu():
         measure_compiled(c, 18, 4, 4)
 
 
+@pytest.mark.parametrize("name,block,shape", [
+    ("jacobi-1d", 8, (32,)), ("jacobi-2d", 2, (16, 4)),
+    ("heat-3d", 8, (32, 8, 8))])
+def test_measure_input_is_the_seeded_geometry(name, block, shape):
+    """The array measure_compiled times (and chip_smoke checks again):
+    inner widths max(4, block), standard normal from the seed."""
+    from repro_torch.runtime.cuda_backend import measure_input
+
+    x = measure_input(STENCIL_PROGRAMS[name], shape[0], block, "cpu", 3)
+    want = np.random.default_rng(3).standard_normal(shape)
+    assert x.dtype == torch.float32 and tuple(x.shape) == shape
+    np.testing.assert_array_equal(x.numpy(), want.astype(np.float32))
+
+
 def test_stencil_programs_mirror_registered_kernels():
     assert set(STENCIL_PROGRAMS) <= set(kernel_names())
 
