@@ -100,6 +100,27 @@ failure:
    the same grid, roofline only, through the `PoolManager`'s 4 spawned
    workers while CUDA is live here, must give the same
    ``(fifo_fraction, total_slots)`` at every point.
+12. The fault matrix and the self-timed engine (`runtime.resilience`,
+   `runtime.selftimed`), at the PolyBench default sizes the reference's
+   benchmarks analyze.  For each of `BENCH_faults.json`'s 15 kernels,
+   ``faults_validate`` of ``classify().fifoize().size(pow2=True)`` with no
+   device named, so its ``"cuda"`` trace rows replay on the card through
+   kernel 3, the replay's launch count set to 0 first: the reference
+   rows must give the kernel's ``counts``, ``clean_guard_events``,
+   ``engine_cases`` and ``trace_cases``; every cuda row must be detected
+   with the reference rows' fault specs (``faults_validate`` raises where
+   a row blames another channel than the one injected); and the launches
+   must equal the cuda rows whose trace has edges (108).  Every faulted
+   event list then goes through kernel 3 and through the sequential walk,
+   which must give the same six counters.  The self-timed points
+   (`repro_torch.bench.selftimed_points`: jacobi-1d, jacobi-2d, heat-3d
+   at exact sizing and the vpp-blocked ring, each at planned, planned−1
+   and planned+25% under the concurrent policy) must equal
+   `BENCH_selftimed.json`'s in every field but the seconds.  Phase 2's
+   analyses must pass ``validate(mode="selftimed")`` and
+   ``validate(mode="faults")`` (one replay launch a cuda row).  Printed,
+   not gated: the host seconds of the matrix and of the points, and each
+   stencil's guarded-run overhead over the plain run (best of 5).
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -147,7 +168,8 @@ float32 sums in another order.  The plain versions and the yardsticks run
 with TF32 off.
 
 The last lines are the card's name and power limit, one JSON line with the
-kernels' numbers, and ``{"ok": true, "device": {...}}``.  Without a CUDA
+kernels' numbers (each replay row also with its stencil's launches in the
+phase 12 matrix, ``fault_matrix_launches``), and ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, the script exits 2 and prints no result.
 """
 from __future__ import annotations
@@ -265,6 +287,10 @@ DSE_KERNELS = ("jacobi-1d", "jacobi-2d", "heat-3d")
 DSE_BUDGET = 48
 DSE_POOL_WORKERS = 4
 DSE_REPEATS = 3
+#: phase 12: the guarded-run overhead's stencils and best-of count
+#: (benchmarks/bench_faults.py's OVERHEAD_KERNELS and REPS)
+OVERHEAD_KERNELS = ("jacobi-1d", "jacobi-2d", "heat-3d")
+OVERHEAD_REPS = 5
 #: kernels redesigned for Hopper after their first port
 REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
               "flash_attention", "gla_timemix"}
@@ -549,6 +575,144 @@ def dse_phase() -> None:
         f"(fifo_fraction, total_slots) equal at every point")
 
 
+def faults_phase(planned) -> dict:
+    """Phase 12: the fault matrix with its wire faults replayed on the card
+    by kernel 3, and the self-timed engine's capacity points (see the
+    docstring).  ``planned(name)`` gives phase 2's analyses.  Returns the
+    matrix's replay launches by kernel; raises on any failed check."""
+    import torch
+
+    from repro_torch.bench.selftimed_points import (deterministic, points,
+                                                    targets)
+    from repro_torch.core import analyze
+    from repro_torch.core.registry import get
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.runtime import cuda_backend as cb
+    from repro_torch.runtime.lowering import backend
+    from repro_torch.runtime.resilience import (FaultPlan, channel_lowerings,
+                                                faults_validate, run_guarded,
+                                                wire_faults)
+    from repro_torch.runtime.selftimed import (execute_ppn,
+                                               executable_capacities)
+
+    bench = json.loads((ROOT / "BENCH_faults.json").read_text())
+    want_st = json.loads((ROOT / "BENCH_selftimed.json").read_text())
+    dev = torch.device("cuda")
+
+    def matrix_analysis(name):           # bench_faults.py's _planned
+        return analyze(get(name)).classify().fifoize().size(pow2=True)
+
+    # the fault matrix, on the card, its replay launches counted
+    cases, launched, matrix_s = {}, {}, {}
+    t0 = time.perf_counter()
+    for row in bench["matrix"]:
+        name = row["kernel"]
+        a = matrix_analysis(name)
+        cuda_lib.REPLAY.launches = 0
+        t1 = time.perf_counter()
+        v = faults_validate(a)           # the card: no device named
+        matrix_s[name] = time.perf_counter() - t1
+        launched[name] = cuda_lib.REPLAY.launches
+        ref = [r for r in v.trace_matrix if r["backend"] == "reference"]
+        cud = [r for r in v.trace_matrix if r["backend"] == "cuda"]
+        got = {"counts": {"injected": len(v.matrix) + len(ref),
+                          "engine_cases": len(v.matrix),
+                          "trace_cases": len(ref),
+                          "recovered": v.recovered},
+               "clean_guard_events": v.clean["guard_events"],
+               "engine_cases": len(v.matrix), "trace_cases": len(ref)}
+        check(got == {k: row[k] for k in got},
+              f"phase 12 {name}: the matrix gave {got}, BENCH_faults.json "
+              f"{row}")
+        # faults_validate raises where a row is undetected or blames
+        # another channel than the one injected; these hold it again
+        check([r["fault"] for r in cud] == [r["fault"] for r in ref]
+              and all(r["detected"] for r in cud),
+              f"phase 12 {name}: cuda rows {cud}")
+        cases[name] = wire_faults(a)
+        edged = sum(1 for c in cases[name] if c.trace.num_edges)
+        check(launched[name] == edged,
+              f"phase 12 {name}: {launched[name]} replay launches for "
+              f"{edged} cuda rows with edges")
+    total_s = time.perf_counter() - t0
+    n_rows = sum(len(c) for c in cases.values())
+    say(f"phase 12 fault matrix: {len(cases)} kernels as BENCH_faults.json "
+        f"has them, {n_rows} cuda rows detected, {sum(launched.values())} "
+        f"replay launches (one a row with edges); host seconds "
+        f"{total_s:.3f}, by kernel (faults_validate) "
+        f"{json.dumps({k: round(t, 4) for k, t in matrix_s.items()})}")
+
+    # kernel 3 against the sequential walk on every faulted event list
+    n_events = 0
+    for name, kernel_cases in cases.items():
+        for c in kernel_cases:
+            ev = cb.ring_events(c.trace)
+            op = backend("cuda").implementation(c.lowering).order_op
+            ts = [torch.from_numpy(x) for x in (ev.kind, ev.value, ev.slot)]
+            got = cb.replay_events(*(t.to(dev) for t in ts), ev.ring,
+                                   op).tolist()
+            walk = cb._replay_walk(*ts, ev.ring, op).tolist()
+            check(got == walk, f"phase 12 {name} {c.fault.spec()}: kernel "
+                  f"{got}, walk {walk}")
+            n_events += len(ev.kind)
+    say(f"phase 12 kernel 3 equals the walk on all {n_rows} faulted event "
+        f"lists ({n_events} events)")
+
+    # the self-timed points
+    want = {t["target"]: t for t in want_st["targets"]}
+    t0 = time.perf_counter()
+    walls = {}
+    for label, ppn, caps in targets():
+        got = points(ppn, caps)
+        bounded = sum(1 for c in caps.values() if c is not None)
+        check(bounded == want[label]["bounded_channels"],
+              f"phase 12 {label}: {bounded} bounded channels")
+        for point, row in got.items():
+            ref = want[label]["points"][point]
+            check(deterministic(row) == deterministic(ref),
+                  f"phase 12 {label} {point}: {row} against {ref}")
+        walls[label] = {p: r["wall_seconds"] for p, r in got.items()}
+    points_s = time.perf_counter() - t0
+    say(f"phase 12 self-timed points: {len(walls)} targets x 3 as "
+        f"BENCH_selftimed.json has them; host seconds {points_s:.3f}, by "
+        f"point {json.dumps(walls)}")
+
+    # the main path's analyses, both modes, the faults' rows on the card
+    for name in SIZES:
+        a = planned(name)
+        st = a.validate(mode="selftimed").selftimed
+        check(st.report.completed, f"phase 12 {name}: {st.summary()}")
+        cuda_lib.REPLAY.launches = 0
+        r = a.validate(mode="faults").resilience
+        check(r.trace_backends == ["reference", "cuda"]
+              and cuda_lib.REPLAY.launches == sum(
+                  1 for c in wire_faults(a) if c.trace.num_edges),
+              f"phase 12 {name}: {r.summary()}, "
+              f"{cuda_lib.REPLAY.launches} launches")
+        say(f"phase 12 main path {name}: {st.summary()}; {r.summary()}")
+
+    # the guarded run's cost over the plain one (bench_faults.py's overhead)
+    for name in OVERHEAD_KERNELS:
+        a = matrix_analysis(name)
+        caps, lows = executable_capacities(a), channel_lowerings(a)
+
+        def best(fn):
+            times = []
+            for _ in range(OVERHEAD_REPS):
+                t1 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t1)
+            return min(times)
+
+        plain = best(lambda: execute_ppn(a.ppn, caps, policy="sequential"))
+        guarded = best(lambda: run_guarded(a.ppn, caps, FaultPlan(), lows,
+                                           policy="sequential"))
+        say(f"phase 12 overhead {name}: plain {plain:.6f} s, guarded "
+            f"{guarded:.6f} s host clock, {100 * (guarded / plain - 1):+.2f}%"
+            f" (best of {OVERHEAD_REPS})")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -823,13 +987,9 @@ def main() -> int:
             trace = trace_channel(a.ppn, ch, sizing)
             if trace.num_edges == 0:
                 continue
-            ev = cb._build_events(trace)
-            pad = cb._pow2(len(ev.kind)) - len(ev.kind)
-            arrs = [np.concatenate([ev.kind, np.full(pad, cb._NOOP)]),
-                    np.concatenate([ev.value, np.zeros(pad, np.int64)]),
-                    np.concatenate([ev.slot, np.zeros(pad, np.int64)])]
-            lists.append(([torch.from_numpy(v.astype(np.int32)).to(dev)
-                           for v in arrs], cb._pow2(ev.needed)))
+            ev = cb.ring_events(trace)
+            lists.append(([torch.from_numpy(v).to(dev)
+                           for v in (ev.kind, ev.value, ev.slot)], ev.ring))
         for ts, ring in lists:
             for order_op in (cb._FIFO, cb._REGISTER, cb._REORDER):
                 got = cb.replay_events(*ts, ring, order_op)
@@ -1373,6 +1533,15 @@ def main() -> int:
     t0 = time.perf_counter()
     dse_phase()
     say(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------- phase 12 --
+    t0 = time.perf_counter()
+    fault_launches = faults_phase(planned)
+    for row in rows:
+        if row["name"].startswith("replay["):
+            stencil = row["name"][len("replay["):-1]
+            row["fault_matrix_launches"] = fault_launches[stencil]
+    say(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

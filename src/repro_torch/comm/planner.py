@@ -16,7 +16,7 @@ verdict→lowering table is `repro_torch.runtime.lowering.PATTERN_LOWERING`; the
 trace-driven reference simulator is `repro_torch.runtime.simulator`.  The
 collectives that carry the ring (the reference's `comm.channels` and
 `comm.pipeline`) are not ported yet: ROADMAP queue 1, 'Pipeline-parallel
-ring'.  Neither is the self-timed engine `ring_selftimed` runs on.
+ring'.
 """
 from __future__ import annotations
 
@@ -190,13 +190,18 @@ def ring_selftimed(spec: PipelineSpec, policy: str = "concurrent",
     capacity (the tick model shifts each late read independently and misses
     the consumer-order cascade) — this function observes that as a
     structural deadlock naming the channel, where the trace replay would
-    happily replay each part.
-
-    The self-timed engine is not ported yet: this raises
-    `NotImplementedError` naming the ROADMAP item that ports it."""
-    raise NotImplementedError(
-        "ring_selftimed is not ported yet: ROADMAP queue 1, "
-        "'Self-timed engine and fault matrix'")
+    happily replay each part."""
+    from ..runtime.selftimed import execute_ppn   # numpy-only, lazy: no
+    exec_ppn, caps = ring_executable(spec)        # comm<->runtime cycle
+    if shrink:
+        unknown = sorted(set(shrink) - set(caps))
+        if unknown:
+            raise KeyError(f"shrink names unknown channel(s) {unknown} "
+                           f"(planned: {sorted(caps)})")
+        caps.update(shrink)
+    return execute_ppn(exec_ppn, caps, policy=policy,
+                       record_timeline=record_timeline,
+                       on_deadlock=on_deadlock)
 
 
 # ===================================================== sequence-parallel halo

@@ -373,15 +373,25 @@ class Analysis:
         culprit — never a silent wrong answer, never a hang
         (`runtime/resilience/validate.py`; evidence on ``.resilience``).
 
-        Raises `runtime.validate.ValidationError` on any contradiction.
+        The self-timed mode and the fault matrix's engine cases run on the
+        host, and ``mode="selftimed"`` ignores ``backend`` and ``device``
+        as the reference does.  ``mode="faults"`` replays its wire faults
+        on ``"reference"`` and on ``backend`` (once where they are the
+        same): on ``"cuda"``, kernel 3 (``csrc/replay.cu``) on ``device``
+        (``None`` meaning ``"cuda"``).
 
-        The self-timed engine and the fault matrix are not ported yet:
-        ``mode="selftimed"`` and ``mode="faults"`` raise
-        `NotImplementedError` naming the ROADMAP item that ports them."""
-        if mode in ("selftimed", "faults"):
-            raise NotImplementedError(
-                f"validate(mode={mode!r}) is not ported yet: "
-                f"ROADMAP queue 1, 'Self-timed engine and fault matrix'")
+        Raises `runtime.validate.ValidationError` on any contradiction."""
+        if mode == "selftimed":
+            from ..runtime.selftimed.validate import selftimed_validate
+            self.ctx.counters["selftimed_stages"] += 1
+            return self._next("selftimed",
+                              selftimed=selftimed_validate(self))
+        if mode == "faults":
+            from ..runtime.resilience.validate import faults_validate
+            self.ctx.counters["faults_stages"] += 1
+            backends = tuple(dict.fromkeys(("reference", backend)))
+            return self._next("faults", resilience=faults_validate(
+                self, trace_backends=backends, device=device))
         if mode != "trace":
             raise ValueError(
                 f"unknown mode {mode!r} (trace | selftimed | faults)")

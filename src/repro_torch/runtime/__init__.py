@@ -8,6 +8,17 @@ operational validation stage.
                    replay through a real ring + the whole-PPN compiler
                    behind `Analysis.compile(backend="cuda")` (lazy; imports
                    torch, builds the kernels at first launch)
+    selftimed    — dataflow-driven execution engine on the host: bounded
+                   back-pressured channels, deadlock detection, stall
+                   observability (`Analysis.validate(mode="selftimed")`;
+                   loaded lazily as the ``"selftimed"`` registry backend)
+    resilience   — fault injection + self-healing channel guards over the
+                   engine's hook seam: seeded `FaultPlan`s, sequence-tag /
+                   checksum / watchdog guards, bounded replay recovery,
+                   FIFO→reorder-buffer hot-swap degradation
+                   (`Analysis.validate(mode="faults")`; its wire faults
+                   replay through kernel 3 on the ``"cuda"`` backend;
+                   loaded lazily)
 """
 from .lowering import (BROADCAST_REGISTER, CHUNK_SPLIT, DEPTH_SPLIT,
                        FIFO_STREAM, LOWERINGS, PATTERN_LOWERING,

@@ -250,6 +250,42 @@ def replay_events(kind: torch.Tensor, value: torch.Tensor,
     return out
 
 
+@dataclass(frozen=True)
+class RingEvents:
+    """The int32 event list `_RingReplay.run` hands kernel 3: ``kind``,
+    ``value`` and ``slot`` padded with NOOPs to a power of two, slots
+    folded modulo the ``nslots`` the ring was asked for, on a ring of
+    ``ring`` (the next power of two) slots."""
+
+    kind: np.ndarray
+    value: np.ndarray
+    slot: np.ndarray
+    ring: int
+    nslots: int
+    needed: int
+
+
+def ring_events(trace: ChannelTrace,
+                slots: Optional[int] = None) -> RingEvents:
+    """Lower a trace with edges to the event list kernel 3 replays on
+    ``slots`` ring slots (``None``: as many as a collision-free replay
+    needs)."""
+    ev = _build_events(trace)
+    nslots = ev.needed if slots is None else max(1, int(slots))
+    n = len(ev.kind)
+    pad = _pow2(n) - n
+    kind, value, slot = (
+        np.concatenate([ev.kind, np.full(pad, _NOOP)]),
+        np.concatenate([ev.value, np.zeros(pad, dtype=np.int64)]),
+        np.concatenate([ev.slot % nslots, np.zeros(pad, dtype=np.int64)]))
+    ring = _pow2(nslots)
+    if not 0 <= slot.min() <= slot.max() < ring:
+        raise ValueError(f"{trace.channel}: a slot lies outside the "
+                         f"ring of {ring}")
+    return RingEvents(kind.astype(np.int32), value.astype(np.int32),
+                      slot.astype(np.int32), ring, nslots, ev.needed)
+
+
 class _RingReplay(ChannelLowering):
     """Shared machinery: lower the trace to events, run the kernel, raise."""
 
@@ -259,23 +295,13 @@ class _RingReplay(ChannelLowering):
             device=None) -> int:
         if trace.num_edges == 0:
             return 0
-        ev = _build_events(trace)
-        nslots = ev.needed if slots is None else max(1, int(slots))
-        n = len(ev.kind)
-        pad = _pow2(n) - n
-        arrays = [np.concatenate([ev.kind, np.full(pad, _NOOP)]),
-                  np.concatenate([ev.value, np.zeros(pad, dtype=np.int64)]),
-                  np.concatenate([ev.slot % nslots,
-                                  np.zeros(pad, dtype=np.int64)])]
-        ring = _pow2(nslots)
-        if not 0 <= arrays[2].min() <= arrays[2].max() < ring:
-            raise ValueError(f"{trace.channel}: a slot lies outside the "
-                             f"ring of {ring}")
+        ev = ring_events(trace, slots)
+        nslots = ev.nslots
         dev = torch.device("cuda" if device is None else device)
-        kind, value, slot = (torch.from_numpy(a.astype(np.int32)).to(dev)
-                             for a in arrays)
+        kind, value, slot = (torch.from_numpy(a).to(dev)
+                             for a in (ev.kind, ev.value, ev.slot))
         peak, order_v, mism, ovf, unf = replay_events(
-            kind, value, slot, ring, self.order_op).tolist()[:5]
+            kind, value, slot, ev.ring, self.order_op).tolist()[:5]
         if order_v:
             raise OrderViolation(
                 trace.channel,

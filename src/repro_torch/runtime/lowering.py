@@ -8,13 +8,15 @@ a classification verdict into an implementation goes through this module:
   comm backend and the docs all read it from here; nothing else may encode
   the mapping.
 * :class:`ChannelLowering` — the interface a backend implements per lowering.
-* :class:`Backend` / :func:`backend` — the registry.  Two backends ship:
-  ``"reference"`` (the trace-driven simulator, `runtime/simulator.py`) and
-  ``"cuda"`` (hand-written CUDA ring kernels, `runtime/cuda_backend.py`);
-  both are loaded lazily on first lookup so importing the analysis core
-  never pulls in torch, and the ``"cuda"`` backend registers on a host with
-  no GPU (its kernels build and load at first launch).  A backend may
-  additionally attach a whole-PPN ``compile`` hook (the cuda backend does —
+* :class:`Backend` / :func:`backend` — the registry.  Three backends ship:
+  ``"reference"`` (the trace-driven simulator, `runtime/simulator.py`),
+  ``"cuda"`` (hand-written CUDA ring kernels, `runtime/cuda_backend.py`)
+  and ``"selftimed"`` (per-event queue machines + the dataflow-driven
+  engine on the host, `runtime/selftimed/`); all are loaded lazily on
+  first lookup so importing the analysis core never pulls in torch, and
+  the ``"cuda"`` backend registers on a host with no GPU (its kernels build
+  and load at first launch).  A backend may additionally attach a
+  whole-PPN ``compile`` hook (the cuda and selftimed backends do —
   `Analysis.compile(backend=...)`).
 
 This module deliberately imports nothing from `repro_torch.core`: the table is
@@ -195,6 +197,7 @@ _REGISTRY: Dict[str, Backend] = {}
 _LAZY_BACKENDS: Dict[str, str] = {
     "reference": "repro_torch.runtime.simulator",
     "cuda": "repro_torch.runtime.cuda_backend",
+    "selftimed": "repro_torch.runtime.selftimed",
 }
 
 

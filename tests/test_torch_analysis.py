@@ -1,15 +1,16 @@
 """The port's analysis path (`src/repro_torch/`) against the JAX package.
 
 1. Isolation: the port imports neither jax nor `repro`; a subprocess with
-   both blocked runs the whole main path, the Fig. 3, attention and
-   time-mix entry points, a symbolic template and one DSE group, on the
-   CPU.
+   both blocked runs the whole main path (the self-timed and fault modes
+   and the self-timed CLI included), the Fig. 3, attention and time-mix
+   entry points, a symbolic template and one DSE group, on the CPU.
 2. Report parity: on all 15 PolyBench kernels,
    ``classify → fifoize → size → plan → validate → report`` gives the same
    `AnalysisReport` in both packages (apart from the cache counters).
 3. Plan records cross over: the port reads the reference's report JSON
    (schema 5) into an equal report.
-4. The parts of the reference this slice does not port fail loudly.
+4. The slice boundary: the self-timed and fault modes run, and the
+   registry holds the three backends.
 """
 import ast
 import json
@@ -85,6 +86,14 @@ got = c(x, 4, 4)
 assert float((got - c.program.ref(got.new_tensor(x), 4)).abs().max()) < 1e-5
 v = a.validate(backend="cuda", device="cpu").validation
 assert (v.replays, v.rejections) == (14, 3), v.summary()
+assert a.validate(mode="selftimed").selftimed.report.completed
+r = a.validate(mode="faults", device="cpu").resilience
+assert r.trace_backends == ["reference", "cuda"], r.trace_backends
+from repro_torch.comm.planner import PipelineSpec, ring_selftimed
+assert ring_selftimed(PipelineSpec(4, 6, 2, "vpp-blocked")).completed
+from repro_torch.runtime.selftimed.__main__ import main as selftimed_cli
+assert selftimed_cli(["--decode", "--slots", "2", "--steps", "3"]) == 0
+import repro_torch.bench.selftimed_points
 
 import torch
 import repro_torch.bench.fig3_stencil
@@ -164,10 +173,25 @@ def test_reference_report_json_round_trips_into_the_port():
 
 
 def test_unported_modes_name_their_roadmap_item():
+    """The self-timed and fault modes, once refused, now run: the
+    self-timed evidence and the fault matrix's reference rows are the
+    reference's, and the port's wire faults also replay on "cuda"."""
     a = analyze(get("jacobi-1d")).classify().fifoize().size().plan()
-    for mode in ("selftimed", "faults"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            a.validate(mode=mode)
+    ref = ref_analyze(ref_get("jacobi-1d")).classify().fifoize().size().plan()
+    st = a.validate(mode="selftimed")
+    assert st.selftimed.as_dict() == (ref.validate(mode="selftimed")
+                                      .selftimed.as_dict())
+    faults = a.validate(mode="faults", device="cpu").resilience
+    want = ref.validate(mode="faults").resilience
+    assert faults.trace_backends == ["reference", "cuda"]
+    assert faults.matrix == want.matrix
+    rows = {b: [r for r in faults.trace_matrix if r["backend"] == b]
+            for b in ("reference", "cuda")}
+    assert rows["reference"] == want.trace_matrix
+    assert len(rows["cuda"]) == len(want.trace_matrix) == 10
+    assert all(r["detected"] for r in rows["cuda"])
+    with pytest.raises(ValueError, match="faults"):
+        a.validate(mode="nonsense")
     assert isinstance(analyze(get("jacobi-1d"), sizes="symbolic"),
                       ParametricAnalysis)
     with pytest.raises(ValueError, match="symbolic"):
@@ -179,6 +203,7 @@ def test_backends_register_without_a_card():
     from repro_torch.runtime import available_backends
 
     status = available_backends()
-    assert set(status) == {"reference", "cuda"}
+    assert set(status) == {"reference", "cuda", "selftimed"}
     assert all(s.startswith("ok") for s in status.values()), status
     assert "+compile" in status["cuda"]
+    assert "+compile" in status["selftimed"]

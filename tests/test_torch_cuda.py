@@ -450,3 +450,91 @@ def test_dse_pool_measures_after_cuda_is_live(cuda_device):
         pool.close()
     assert task_id == "jacobi-1d"
     _assert_measured_on_the_card(results)
+
+
+# ------------------------------------------------ wire faults on the card --
+
+def _planned_gemm():
+    import repro_torch.core.polybench  # noqa: F401  (populate the registry)
+    from repro_torch.core import analyze
+    from repro_torch.core.registry import get
+    return analyze(get("gemm")).classify().fifoize().size(pow2=True).plan(
+        topology="sequential")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["drop", "duplicate", "reorder"])
+def test_gemm_wire_faults_are_rejected_on_the_card(kind, cuda_device):
+    from repro_torch.runtime.lowering import FIFO_STREAM
+    from repro_torch.runtime.resilience import (
+        Fault, GuardViolation, expected_pop_counts, faulted_trace,
+        guarded_replay)
+
+    a = _planned_gemm()
+    ch = next(c for c in a.ppn.channels if c.name == "init->upd.C[0]")
+    tr = trace_channel(a.ppn, ch, a.ctx.sizing(a.ppn))
+    exp = expected_pop_counts(tr)
+    assert guarded_replay(tr, FIFO_STREAM, "cuda", expected=exp,
+                          device=cuda_device) == guarded_replay(
+        tr, FIFO_STREAM, "cuda", expected=exp, device="cpu")
+    before = cuda_lib.REPLAY.launches
+    with pytest.raises(GuardViolation) as exc:
+        guarded_replay(faulted_trace(tr, Fault(kind, tr.channel, 1)),
+                       FIFO_STREAM, "cuda", expected=exp,
+                       device=cuda_device)
+    assert exc.value.channel == "init->upd.C[0]"
+    assert cuda_lib.REPLAY.launches - before == 1
+
+
+def _jacobi_1d():
+    import repro_torch.core.polybench  # noqa: F401  (populate the registry)
+    from repro_torch.core import analyze
+    from repro_torch.core.registry import get
+    return analyze(get("jacobi-1d")).classify().fifoize().size(pow2=True)
+
+
+@pytest.mark.cuda
+def test_jacobi_1d_trace_matrix_on_the_card(cuda_device):
+    from repro_torch.runtime.resilience import faults_validate, wire_faults
+
+    a = _jacobi_1d()
+    cases = wire_faults(a)
+    cuda_lib.REPLAY.launches = 0
+    v = faults_validate(a)                   # the card: no device named
+    rows = {b: [r for r in v.trace_matrix if r["backend"] == b]
+            for b in ("reference", "cuda")}
+    assert len(rows["cuda"]) == len(rows["reference"]) == 10
+    assert all(r["detected"] for r in v.trace_matrix)
+    assert ([r["fault"] for r in rows["cuda"]]
+            == [r["fault"] for r in rows["reference"]])
+    assert cuda_lib.REPLAY.launches == sum(1 for c in cases
+                                           if c.trace.num_edges)
+    on_cpu = faults_validate(a, device="cpu")
+    assert on_cpu.trace_matrix == v.trace_matrix
+
+
+@pytest.mark.cuda
+def test_replay_kernel_matches_walk_on_faulted_traces(cuda_device):
+    from repro_torch.runtime import cuda_backend as cb
+    from repro_torch.runtime.lowering import backend
+    from repro_torch.runtime.resilience import wire_faults
+
+    for a in (_jacobi_1d(), _planned_gemm()):
+        for case in wire_faults(a):
+            ev = cb.ring_events(case.trace)
+            op = backend("cuda").implementation(case.lowering).order_op
+            ts = [torch.from_numpy(x) for x in (ev.kind, ev.value, ev.slot)]
+            want = _replay_walk(*ts, ev.ring, op).tolist()
+            got = replay_events(*(t.to(cuda_device) for t in ts), ev.ring,
+                                op).tolist()
+            assert got == want, case.fault.spec()
+
+
+@pytest.mark.cuda
+def test_selftimed_backend_refuses_the_card(cuda_device):
+    a = _jacobi_1d().plan()
+    with pytest.raises(ValueError, match="host"):
+        a.compile(backend="selftimed", device="cuda")
+    with pytest.raises(ValueError, match="host"):
+        a.compile(backend="selftimed", device=cuda_device)
+    assert a.compile(backend="selftimed").run().completed
