@@ -121,6 +121,34 @@ failure:
    ``validate(mode="faults")`` (one replay launch a cuda row).  Printed,
    not gated: the host seconds of the matrix and of the points, and each
    stencil's guarded-run overhead over the plain run (best of 5).
+13. The pipeline-parallel ring and the optimizers (`repro_torch.comm`,
+   `repro_torch.optim`), TF32 off, the six kernels' launch counts set to 0
+   first: they must stay 0, as the path runs torch ops and collectives and
+   no kernel of this repository.  Four stages on the card in one
+   ``LocalGroup(4)``, for three selections of the ring's lowering: the
+   planner's records (``analyze_pipeline``, which must select
+   ``"ppermute"``), ``"reorder-buffer"`` and ``"cuda:ppermute"``.  At the
+   reference test's shape (S = 4, D = 16, M = 8, mb = 4) the loss and
+   gradients must equal the sequential composition on the card and the
+   same code on the CPU, and 30 SGD steps (lr 0.05) must lower the loss.
+   At qwen2-7b's d_model (D = 3584, `src/repro/configs/qwen2_7b.py`), S =
+   4, M = 8, mb = 512, float32 (205 MB of weights), each selection is held
+   to the sequential composition and one ``pipeline_train_step`` is timed
+   (CUDA events, median of 10 after a warm-up) beside its peak memory and
+   its operations' bound, float32 products at three TF32 passes
+   (`repro_torch.device`), for all its products and for the useful ones
+   (the M ticks that carry microbatches, not the S - 1 of the bubble);
+   the reorder buffer's time over ppermute's is
+   printed with the card's name and power limit.  `adamw_update` (two
+   steps, the learning rate from `cosine_warmup`) in float32 and with int8
+   state on a (4, 3584, 3584) stacked parameter must agree with the same
+   calls on the CPU, the int8 codes equal; `compressed_psum_mean` on
+   ``LocalGroup(4)`` at the same shape must be within max|g| / 127 of the
+   exact mean and equal to the CPU's result.  Each is timed on the card.
+   Where the machine has two or more cards, a NCCL `DistGroup` over
+   min(4, count) ranks, one card each, must give the CPU's loss and
+   gradients (`dist_pipeline_errors`, which the CPU tests run under
+   gloo); with one card a line says that it did not run.
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -166,6 +194,20 @@ three TF32 passes, its exponentials on the special-function unit), and in
 bf16 to 2e-2, one rounding of the output to bf16 (2**-8 relative) from
 float32 sums in another order.  The plain versions and the yardsticks run
 with TF32 off.
+
+Phase 13 compares products in float32 with TF32 off.  At D = 16 a sum of
+16 products differs by a few units of the last place between orders (the
+card's cuBLAS, the CPU's, the batched and the per-stage products), so the
+loss and gradients (of order 0.01–1) are held to an absolute 1e-6, the
+tolerance the CPU tests hold the port to the JAX package with.  At D =
+3584 the sums have 3584 terms and the gradients are of order 1e-6, so each
+leaf is held to a relative 1e-4 of its largest element and the loss to a
+relative 1e-4.  The optimizers' elementwise steps round the same way on
+both devices; the gradients are drawn with a global norm under the clip
+norm, so the clip scale is exactly 1 and no sum order reaches the update:
+the int8 codes and the compressed mean must be equal, and the float32
+moments and parameters agree to 1e-6 (relative for the moments), which
+leaves room for one rounding of ``b1**step`` and ``sqrt``.
 
 The last lines are the card's name and power limit, one JSON line with the
 kernels' numbers (each replay row also with its stencil's launches in the
@@ -291,6 +333,19 @@ DSE_REPEATS = 3
 #: (benchmarks/bench_faults.py's OVERHEAD_KERNELS and REPS)
 OVERHEAD_KERNELS = ("jacobi-1d", "jacobi-2d", "heat-3d")
 OVERHEAD_REPS = 5
+#: phase 13: the pipeline ring (stages S, width D, M microbatches of mb
+#: rows) at the reference test's shape, and at qwen2-7b's d_model
+#: (src/repro/configs/qwen2_7b.py) with 512 rows a microbatch
+PIPE_SMALL = dict(S=4, D=16, M=8, mb=4)
+PIPE_WIDE = dict(S=4, D=3584, M=8, mb=512)
+PIPE_SGD_STEPS = 30
+PIPE_LR = 0.05
+PIPE_REPS = 10
+PIPE_TOL = 1e-6                     # small shape, absolute (see docstring)
+PIPE_WIDE_RTOL = 1e-4               # wide shape, of each leaf's max |grad|
+#: the optimizers' stacked parameter: four stages of a qwen2-7b-wide square
+OPT_SHAPE = (4, 3584, 3584)
+OPT_STEPS = 2
 #: kernels redesigned for Hopper after their first port
 REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
               "flash_attention", "gla_timemix"}
@@ -711,6 +766,345 @@ def faults_phase(planned) -> dict:
             f"{guarded:.6f} s host clock, {100 * (guarded / plain - 1):+.2f}%"
             f" (best of {OVERHEAD_REPS})")
     return launched
+
+
+def _stage_fn(p, h):
+    import torch
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def _loss_head(h, tgt):
+    import torch
+    return torch.mean((h - tgt) ** 2)
+
+
+def pipe_selections(stages: int, microbatches: int) -> dict:
+    """Phase 13's three ways to pick the ring's lowering: the planner's
+    records (which must select ``"ppermute"``), the reorder buffer by name,
+    and the cuda backend's stream by qualified name."""
+    from repro_torch.comm import PipelineSpec, analyze_pipeline, ring_lowering
+
+    _, plans = analyze_pipeline(PipelineSpec(stages=stages,
+                                             microbatches=microbatches))
+    check(ring_lowering(plans) == "ppermute",
+          f"the planner selects {ring_lowering(plans)!r}, not 'ppermute'")
+    return {"plans": {"plans": plans},
+            "reorder-buffer": {"lowering": "reorder-buffer"},
+            "cuda:ppermute": {"lowering": "cuda:ppermute"}}
+
+
+def pipe_inputs(shape: dict, seed: int):
+    """Stacked stage parameters (numpy, as the reference's), inputs and
+    targets from ``seed``; w's scale 2/sqrt(D) is the reference test's 0.5
+    at D = 16."""
+    import numpy as np
+
+    S, D, M, mb = (shape[k] for k in ("S", "D", "M", "mb"))
+    rng = np.random.default_rng(seed)
+    normal = lambda *size: rng.standard_normal(size, dtype=np.float32)
+    params = {"w": normal(S, D, D) * np.float32(2 / np.sqrt(D)),
+              "b": normal(S, D) * np.float32(0.1)}
+    return params, normal(M, mb, D), normal(M, mb, D)
+
+
+def pipe_grads(group, params, xs, tg, kwargs: dict):
+    """The pipeline's loss and gradients on ``group`` (``params``: the local
+    block's tensors, `stage_params`)."""
+    import torch
+
+    from repro_torch.comm import pipeline_loss_fn
+
+    params = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = pipeline_loss_fn(_stage_fn, _loss_head, group, **kwargs)(
+        params, torch.as_tensor(xs).to(group.device),
+        torch.as_tensor(tg).to(group.device))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def sequential_grads(params: dict, xs, tg):
+    """The sequential composition (every microbatch through the stages in
+    turn, the reference test's ``ref_loss``) and its gradients."""
+    import torch
+
+    params = {k: v.detach().requires_grad_() for k, v in params.items()}
+    S, M = params["w"].shape[0], xs.shape[0]
+    total = 0.0
+    for m in range(M):
+        h = xs[m]
+        for s in range(S):
+            h = _stage_fn({k: v[s] for k, v in params.items()}, h)
+        total = total + _loss_head(h, tg[m])
+    loss = total / M
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def pipe_errors(got, want) -> dict:
+    """Max abs error of the loss and of each gradient leaf."""
+    out = {"loss": abs(float(got[0]) - float(want[0]))}
+    for k, g in got[1].items():
+        out[k] = float((g.double().cpu() - want[1][k].double().cpu())
+                       .abs().max())
+    return out
+
+
+def dist_pipeline_rank(rank: int, inputs: str, out_dir: str) -> None:
+    """One rank of a `DistGroup` pipeline (spawned by `run_ranks`): the
+    three selections' loss and gradients of its stage, on card ``rank``
+    under NCCL and on the CPU under gloo."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comm import DistGroup, stage_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)                # the ranks share the host
+    data = np.load(inputs)
+    group = DistGroup()
+    want = (torch.device("cuda", rank) if dist.get_backend() == "nccl"
+            else torch.device("cpu"))
+    check(group.device == want, f"rank {rank} runs on {group.device}, "
+          f"not {want}")
+    params = stage_params({"w": data["w"], "b": data["b"]}, group)
+    out = {}
+    for name, kw in pipe_selections(len(data["w"]),
+                                    len(data["xs"])).items():
+        loss, grads = pipe_grads(group, params, data["xs"], data["tg"], kw)
+        out[f"{name}/loss"] = loss.cpu().numpy()
+        for k, g in grads.items():
+            out[f"{name}/grad_{k}"] = g.cpu().numpy()
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def dist_pipeline_errors(world: int, backend: str, seed: int,
+                         work: Path) -> dict:
+    """The pipeline at the reference test's shape over ``world`` ranks of a
+    ``backend`` `DistGroup` (one stage a rank; NCCL takes one card a rank),
+    against the same code on a CPU ``LocalGroup(world)``: for each
+    selection, the largest abs error of any rank's loss and of each
+    gradient leaf, the ranks' stages stacked in rank order.  The ranks
+    read their inputs from and write their stages to ``work``."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.comm import LocalGroup, run_ranks, stage_params
+
+    shape = dict(PIPE_SMALL, S=world)
+    params, xs, tg = pipe_inputs(shape, seed)
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    np.savez(work / "inputs.npz", xs=xs, tg=tg, **params)
+    run_ranks(dist_pipeline_rank, world, args=(str(work / "inputs.npz"),
+                                               str(work)),
+              backend=backend, timeout=300)
+    ranks = [np.load(work / f"rank{r}.npz") for r in range(world)]
+    cpu = LocalGroup(world, "cpu")
+    out = {}
+    for name, kw in pipe_selections(world, shape["M"]).items():
+        want = pipe_grads(cpu, stage_params(params, cpu), xs, tg, kw)
+        errs = {"loss": max(abs(float(r[f"{name}/loss"]) - float(want[0]))
+                            for r in ranks)}
+        for k, g in want[1].items():
+            got = np.concatenate([r[f"{name}/grad_{k}"] for r in ranks])
+            errs[k] = float(np.abs(got - g.numpy()).max())
+        out[name] = errs
+    return out
+
+
+def pipeline_phase(seed: int, smi_line: str, dev=None) -> None:
+    """Phase 13: the pipeline-parallel ring and the optimizers on the card
+    (see the docstring), ``dev`` the card's device.  Raises on any failed
+    check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import cuda_ms
+    from repro_torch.comm import LocalGroup, pipeline_train_step, stage_params
+    from repro_torch.device import PEAK_FLOPS_FP32_PRODUCTS
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.optim import adamw_init, adamw_update, cosine_warmup
+    from repro_torch.optim.compression import compressed_psum_mean
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 13 runs with TF32 off")
+    dev = torch.device("cuda" if dev is None else dev)
+    for k in cuda_lib.KERNELS:
+        k.launches = 0
+
+    # the reference's shape: against the sequential composition on the
+    # card and the same code on the CPU, then SGD steps
+    S, M = PIPE_SMALL["S"], PIPE_SMALL["M"]
+    card, cpu = LocalGroup(S, dev), LocalGroup(S, "cpu")
+    params, xs, tg = pipe_inputs(PIPE_SMALL, seed)
+    xs_d, tg_d = torch.from_numpy(xs).to(dev), torch.from_numpy(tg).to(dev)
+    seq = sequential_grads(stage_params(params, card), xs_d, tg_d)
+    for name, kw in pipe_selections(S, M).items():
+        got = pipe_grads(card, stage_params(params, card), xs_d, tg_d, kw)
+        check(got[0].device.type == dev.type, f"phase 13 {name} ran on "
+              f"{got[0].device}")
+        on_cpu = pipe_grads(cpu, stage_params(params, cpu), xs, tg, kw)
+        err_seq, err_cpu = pipe_errors(got, seq), pipe_errors(got, on_cpu)
+        check(max(err_seq.values()) <= PIPE_TOL
+              and max(err_cpu.values()) <= PIPE_TOL,
+              f"phase 13 {name}: against the sequential composition "
+              f"{err_seq}, against the CPU {err_cpu} (tolerance {PIPE_TOL})")
+        step = pipeline_train_step(_stage_fn, _loss_head, card, lr=PIPE_LR,
+                                   **kw)
+        p = stage_params(params, card)
+        losses = []
+        for _ in range(PIPE_SGD_STEPS):
+            p, loss = step(p, xs_d, tg_d)
+            losses.append(float(loss))
+        check(losses[-1] < losses[0], f"phase 13 {name}: {PIPE_SGD_STEPS} "
+              f"SGD steps did not lower the loss: {losses}")
+        say(f"phase 13 {name} S={S} D={PIPE_SMALL['D']} M={M} "
+            f"mb={PIPE_SMALL['mb']}: loss {float(got[0]):.7f}, max abs err "
+            f"against the sequential composition {json.dumps(err_seq)}, "
+            f"against the CPU {json.dumps(err_cpu)}; {PIPE_SGD_STEPS} SGD "
+            f"steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+
+    # qwen2-7b's width: against the sequential composition, then one
+    # pipeline_train_step per selection timed
+    S, D, M, mb = (PIPE_WIDE[k] for k in ("S", "D", "M", "mb"))
+    params, xs, tg = pipe_inputs(PIPE_WIDE, seed)
+    params = stage_params(params, card)
+    xs, tg = torch.from_numpy(xs).to(dev), torch.from_numpy(tg).to(dev)
+    seq = sequential_grads(params, xs, tg)
+    # a step runs S stages in each of M + S - 1 ticks, forward and backward
+    # (twice the forward's products); M of the ticks carry microbatches, the
+    # S - 1 others are the bubble's, whose products nothing uses
+    flops = 3 * (M + S - 1) * S * 2 * mb * D * D
+    useful = 3 * M * S * 2 * mb * D * D
+    bound_ms = flops / PEAK_FLOPS_FP32_PRODUCTS * 1e3
+    useful_ms = useful / PEAK_FLOPS_FP32_PRODUCTS * 1e3
+    times, peaks = {}, {}
+    for name, kw in pipe_selections(S, M).items():
+        got = pipe_grads(card, params, xs, tg, kw)
+        rel = {"loss": abs(float(got[0]) / float(seq[0]) - 1)}
+        for k, g in got[1].items():
+            want = seq[1][k]
+            rel[k] = float((g - want).abs().max() / want.abs().max())
+        check(max(rel.values()) <= PIPE_WIDE_RTOL, f"phase 13 {name} "
+              f"D={D}: relative errors {rel} against the sequential "
+              f"composition (tolerance {PIPE_WIDE_RTOL})")
+        del got
+        step = pipeline_train_step(_stage_fn, _loss_head, card, lr=PIPE_LR,
+                                   **kw)
+        times[name] = cuda_ms(lambda: step(params, xs, tg), PIPE_REPS)
+        # the step's own peak, above what the phase holds already
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        step(params, xs, tg)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        say(f"phase 13 {name} S={S} D={D} M={M} mb={mb} fp32: loss "
+            f"{float(seq[0]):.7f}, relative errors against the sequential "
+            f"composition {json.dumps(rel)}; pipeline_train_step "
+            f"{times[name]:.3f} ms (median of {PIPE_REPS}, CUDA events), "
+            f"{flops / times[name] / 1e9:.1f} TFLOP/s over {flops:.6g} "
+            f"FLOP, {useful:.6g} of them on microbatches; bound "
+            f"{bound_ms:.3f} ms for all of them, {useful_ms:.3f} ms for the "
+            f"useful ones (operations, float32 products at three TF32 "
+            f"passes), {times[name] / bound_ms:.2f}x and "
+            f"{times[name] / useful_ms:.2f}x; peak {peaks[name]:.2f} GiB "
+            f"above the weights and inputs")
+    say(f"phase 13 reorder buffer / ppermute, one train step at D={D}: "
+        f"{times['reorder-buffer'] / times['plans']:.4f} "
+        f"(cuda:ppermute / ppermute {times['cuda:ppermute'] / times['plans']:.4f}); "
+        f"{smi_line}")
+    del params, xs, tg, seq
+
+    # the optimizers on a stacked parameter: the card against the CPU
+    rng = np.random.default_rng(seed + 1)
+    p0 = 0.02 * rng.standard_normal(OPT_SHAPE, dtype=np.float32)
+    # gradients whose global norm stays under clip_norm = 1, so the clip
+    # scale is exactly 1 on both devices (see the docstring)
+    grads = [1e-5 * rng.standard_normal(OPT_SHAPE, dtype=np.float32)
+             for _ in range(OPT_STEPS)]
+    lr_fn = cosine_warmup(3e-4, 100, 10000)
+    for state_dtype in ("float32", "int8"):
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            params = {"w": torch.from_numpy(p0).to(d)}
+            opt = adamw_init(params, state_dtype)
+            for g in grads:
+                params, opt, gnorm = adamw_update(
+                    params, {"w": torch.from_numpy(g).to(d)}, opt,
+                    lr_fn(opt["step"]), state_dtype=state_dtype)
+            runs.append((params, opt, gnorm))
+        (pc, oc, nc), (ph, oh, nh) = runs
+        check(float(nc) < 1.0, f"phase 13 adamw: gnorm {float(nc)} clips")
+        err = {"param": float((pc["w"].cpu() - ph["w"]).abs().max()),
+               "gnorm": abs(float(nc) / float(nh) - 1)}
+        for m in ("m", "v"):
+            if state_dtype == "int8":
+                check(torch.equal(oc[m]["w"]["q"].cpu(), oh[m]["w"]["q"]),
+                      f"phase 13 adamw int8: {m} codes differ from the CPU's")
+                err[m] = float((oc[m]["w"]["scale"].cpu()
+                                - oh[m]["w"]["scale"]).abs().max()
+                               / oh[m]["w"]["scale"].abs().max())
+            else:
+                err[m] = float((oc[m]["w"].cpu() - oh[m]["w"]).abs().max()
+                               / oh[m]["w"].abs().max())
+        check(err["param"] <= PIPE_TOL and max(err.values()) <= PIPE_TOL,
+              f"phase 13 adamw {state_dtype}: against the CPU {err}")
+        g_d = {"w": torch.from_numpy(grads[0]).to(dev)}
+        ms = cuda_ms(lambda: adamw_update(pc, g_d, oc, 3e-4,
+                                          state_dtype=state_dtype), PIPE_REPS)
+        say(f"phase 13 adamw_update {state_dtype} {OPT_SHAPE}, "
+            f"{OPT_STEPS} steps: against the CPU {json.dumps(err)}"
+            f"{' (m and v codes equal)' if state_dtype == 'int8' else ''}; "
+            f"one update {ms:.3f} ms on the card (median of {PIPE_REPS})")
+        del runs, pc, oc, ph, oh, g_d
+
+    g = rng.standard_normal(OPT_SHAPE, dtype=np.float32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        gt = torch.from_numpy(g).to(d)
+        outs.append(compressed_psum_mean(gt, torch.zeros_like(gt),
+                                         LocalGroup(OPT_SHAPE[0], d)))
+    (mean, err), on_cpu = outs
+    gt = torch.from_numpy(g).to(dev)
+    dev_exact = float((mean - gt.mean(0, keepdim=True)).abs().max())
+    bound = float(gt.abs().max()) / 127.0
+    check(dev_exact <= bound, f"phase 13 compressed mean off the exact mean "
+          f"by {dev_exact} > max|g|/127 = {bound}")
+    check(torch.equal(mean.cpu(), on_cpu[0])
+          and torch.equal(err.cpu(), on_cpu[1]),
+          "phase 13 compressed mean or error differs from the CPU's")
+    ms = cuda_ms(lambda: compressed_psum_mean(gt, err, LocalGroup(
+        OPT_SHAPE[0], dev)), PIPE_REPS)
+    say(f"phase 13 compressed_psum_mean {OPT_SHAPE} on LocalGroup(4): "
+        f"{dev_exact:.3g} off the exact mean (bound max|g|/127 = "
+        f"{bound:.3g}), equal to the CPU's; {ms:.3f} ms on the card "
+        f"(median of {PIPE_REPS})")
+    del outs, mean, err, gt
+
+    launched = {k.source.name: k.launches for k in cuda_lib.KERNELS}
+    check(not any(launched.values()), f"phase 13 launched kernels: "
+          f"{launched}")
+    say(f"phase 13 kernel launches on the pipeline path: "
+        f"{json.dumps(launched)}")
+
+    # NCCL: one card a rank, so only where the machine has two or more
+    count = torch.cuda.device_count()
+    if count < 2:
+        say(f"phase 13 NCCL DistGroup: not run, the machine has {count} "
+            f"card (NCCL takes one card a rank, and refuses two ranks on "
+            f"one)")
+        return
+    world = min(4, count)
+    errs = dist_pipeline_errors(world, "nccl", seed,
+                                ROOT / "build" / "pipeline_nccl")
+    for name, err in errs.items():
+        check(max(err.values()) <= PIPE_TOL, f"phase 13 NCCL {name} on "
+              f"{world} cards: {err} against the CPU")
+        say(f"phase 13 NCCL DistGroup {name}, {world} ranks on {world} "
+            f"cards: max abs err against the CPU {json.dumps(err)}")
 
 
 def main() -> int:
@@ -1542,12 +1936,19 @@ def main() -> int:
             stencil = row["name"][len("replay["):-1]
             row["fault_matrix_launches"] = fault_launches[stencil]
     say(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
-    say(f"total {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    say(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+
+    # --------------------------------------------------------- phase 13 --
+    t0 = time.perf_counter()
+    pipeline_phase(args.seed, smi_line)
+    say(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
+    say(f"total {time.perf_counter() - t_start:.1f} s")
+
+    say(smi_line)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,8 @@ per-channel FIFO order).
 Verdicts map to implementations through the lowering registry — the single
 verdict→lowering table is `repro_torch.runtime.lowering.PATTERN_LOWERING`; the
 trace-driven reference simulator is `repro_torch.runtime.simulator`.  The
-collectives that carry the ring (the reference's `comm.channels` and
-`comm.pipeline`) are not ported yet: ROADMAP queue 1, 'Pipeline-parallel
-ring'.
+collectives that carry the ring are `comm.channels` and `comm.pipeline`,
+on a stage group (`comm.group`).
 """
 from __future__ import annotations
 

@@ -8,6 +8,8 @@ operational validation stage.
                    replay through a real ring + the whole-PPN compiler
                    behind `Analysis.compile(backend="cuda")` (lazy; imports
                    torch, builds the kernels at first launch)
+    torch_backend — the pipeline ring's per-tick collectives on a stage
+                   group (`comm.group`), registered as ``"torch"`` (lazy)
     selftimed    — dataflow-driven execution engine on the host: bounded
                    back-pressured channels, deadlock detection, stall
                    observability (`Analysis.validate(mode="selftimed")`;

@@ -34,8 +34,10 @@ widening the buffer.
 
 The whole-PPN compiler (`Backend.compile` hook → `Analysis.compile`) lives
 in `runtime.cuda_codegen`; this module wires it to the registry.  The
-lowerings' ``step`` hooks (pipeline collectives) come with the port of the
-pipeline ring.
+lowerings also carry the pipeline ring's ``step`` hooks, as the reference's
+pallas lowerings do, so ``lowering="cuda:ppermute"`` runs the ring
+(`comm.pipeline`): the ``"torch"`` backend's steps (`comm.channels`), no
+kernel launched.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..comm.channels import ring_gather, ring_hop
 from ..kernels import cuda_lib
 from .cuda_codegen import compile_analysis
 from .lowering import (BROADCAST_REGISTER, CHUNK_SPLIT, DEPTH_SPLIT,
@@ -333,6 +336,8 @@ class VmemRingFifo(_RingReplay):
 
     order_op = _FIFO
 
+    step = staticmethod(ring_hop)
+
 
 @CUDA.register(BROADCAST_REGISTER)
 class CarriedRegister(_RingReplay):
@@ -342,6 +347,8 @@ class CarriedRegister(_RingReplay):
 
     order_op = _REGISTER
 
+    step = staticmethod(ring_hop)
+
 
 @CUDA.register(REORDER_BUFFER)
 class AddressableVmem(_RingReplay):
@@ -349,6 +356,8 @@ class AddressableVmem(_RingReplay):
     (device memory on Hopper) — any pop order, capacity still enforced."""
 
     order_op = _REORDER
+
+    step = staticmethod(ring_gather)
 
 
 # whole-PPN compiler: Analysis.compile(backend="cuda") resolves here

@@ -8,11 +8,13 @@ a classification verdict into an implementation goes through this module:
   comm backend and the docs all read it from here; nothing else may encode
   the mapping.
 * :class:`ChannelLowering` — the interface a backend implements per lowering.
-* :class:`Backend` / :func:`backend` — the registry.  Three backends ship:
+* :class:`Backend` / :func:`backend` — the registry.  Four backends ship:
   ``"reference"`` (the trace-driven simulator, `runtime/simulator.py`),
-  ``"cuda"`` (hand-written CUDA ring kernels, `runtime/cuda_backend.py`)
-  and ``"selftimed"`` (per-event queue machines + the dataflow-driven
-  engine on the host, `runtime/selftimed/`); all are loaded lazily on
+  ``"cuda"`` (hand-written CUDA ring kernels, `runtime/cuda_backend.py`),
+  ``"torch"`` (the pipeline ring's collectives on a stage group,
+  `runtime/torch_backend.py`) and ``"selftimed"`` (per-event queue
+  machines + the dataflow-driven engine on the host,
+  `runtime/selftimed/`); all are loaded lazily on
   first lookup so importing the analysis core never pulls in torch, and
   the ``"cuda"`` backend registers on a host with no GPU (its kernels build
   and load at first launch).  A backend may additionally attach a
@@ -115,8 +117,9 @@ class ChannelLowering:
     Subclasses declare which vocabulary entries they implement via the
     registry decorator; what "implement" means is backend-specific —
     the reference backend replays traces (`run(trace) -> peak occupancy`,
-    raising on a semantics violation), the jax backend builds collective
-    step functions (`step(h, axis, stage, n) -> h_next`).
+    raising on a semantics violation), the torch backend builds collective
+    step functions (`step(h, group, stage, n) -> h_next`), and the cuda
+    backend does both.
     """
 
     #: primary lowering name (set by `Backend.register`)
@@ -197,6 +200,7 @@ _REGISTRY: Dict[str, Backend] = {}
 _LAZY_BACKENDS: Dict[str, str] = {
     "reference": "repro_torch.runtime.simulator",
     "cuda": "repro_torch.runtime.cuda_backend",
+    "torch": "repro_torch.runtime.torch_backend",
     "selftimed": "repro_torch.runtime.selftimed",
 }
 

@@ -3,14 +3,15 @@
 1. Isolation: the port imports neither jax nor `repro`; a subprocess with
    both blocked runs the whole main path (the self-timed and fault modes
    and the self-timed CLI included), the Fig. 3, attention and time-mix
-   entry points, a symbolic template and one DSE group, on the CPU.
+   entry points, a symbolic template, one DSE group, the pipeline ring
+   and the optimizers, on the CPU.
 2. Report parity: on all 15 PolyBench kernels,
    ``classify → fifoize → size → plan → validate → report`` gives the same
    `AnalysisReport` in both packages (apart from the cache counters).
 3. Plan records cross over: the port reads the reference's report JSON
    (schema 5) into an equal report.
 4. The slice boundary: the self-timed and fault modes run, and the
-   registry holds the three backends.
+   registry holds the four backends.
 """
 import ast
 import json
@@ -123,6 +124,27 @@ task = default_experiment("blocked", kernels=["jacobi-1d"], tile_sizes=[2],
 rows = run_group(task.as_dict())
 assert [r["provenance"]["size_mode"] for r in rows] == ["parametric"] * 2
 assert "measure skipped" in rows[0]["provenance"]["notes"][0], rows[0]
+from repro_torch.comm import (LocalGroup, PipelineSpec, analyze_pipeline,
+                              pipeline_loss_fn, stage_params)
+from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.optim.compression import compressed_psum_mean
+group = LocalGroup(4, "cpu")
+_, plans = analyze_pipeline(PipelineSpec(stages=4, microbatches=3))
+params = stage_params({"w": 0.5 * rng.standard_normal((4, 8, 8)),
+                       "b": np.zeros((4, 8))}, group)
+loss = pipeline_loss_fn(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                        lambda h, y: torch.mean((h - y) ** 2), group,
+                        plans=plans)(params, t(3, 2, 8).double(),
+                                     t(3, 2, 8).double())
+assert loss.ndim == 0 and bool(torch.isfinite(loss))
+g = t(4, 16)
+mean, err = compressed_psum_mean(g, torch.zeros_like(g), group)
+assert float((mean - g.mean(0)).abs().max()) <= float(g.abs().max()) / 127
+p = {"w": t(4, 8, 8)}
+new, opt, gnorm = adamw_update(p, {"w": t(4, 8, 8)},
+                               adamw_init(p, "int8"), 1e-2,
+                               state_dtype="int8")
+assert int(opt["step"]) == 1 and new["w"].shape == (4, 8, 8)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
 assert not leaked, leaked
@@ -203,7 +225,7 @@ def test_backends_register_without_a_card():
     from repro_torch.runtime import available_backends
 
     status = available_backends()
-    assert set(status) == {"reference", "cuda", "selftimed"}
+    assert set(status) == {"reference", "cuda", "selftimed", "torch"}
     assert all(s.startswith("ok") for s in status.values()), status
     assert "+compile" in status["cuda"]
     assert "+compile" in status["selftimed"]

@@ -538,3 +538,35 @@ def test_selftimed_backend_refuses_the_card(cuda_device):
     with pytest.raises(ValueError, match="host"):
         a.compile(backend="selftimed", device=cuda_device)
     assert a.compile(backend="selftimed").run().completed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("selection", ["plans", "reorder-buffer",
+                                       "cuda:ppermute"])
+def test_pipeline_on_the_card_matches_its_cpu_run(selection, cuda_device):
+    """Four stages on one card (`LocalGroup(4, "cuda")`), TF32 off, against
+    the same code on the CPU, at the reference test's shape."""
+    import torch_ranks
+    from repro_torch.comm import LocalGroup
+
+    S, D, M, mb = 4, 16, 8, 4
+    rng = np.random.default_rng(19)
+    params = {"w": (0.5 * rng.standard_normal((S, D, D))).astype(np.float32),
+              "b": (0.1 * rng.standard_normal((S, D))).astype(np.float32)}
+    xs, tg = (torch.from_numpy(rng.standard_normal((M, mb, D)).astype(
+        np.float32)) for _ in range(2))
+    kwargs = torch_ranks.selection_kwargs(selection, S, M)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = torch_ranks.pipeline_grads(LocalGroup(4, cuda_device), params,
+                                         xs, tg, **kwargs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = torch_ranks.pipeline_grads(LocalGroup(4, "cpu"), params, xs, tg,
+                                      **kwargs)
+    assert got[0].device.type == "cuda"
+    assert abs(float(got[0]) - float(want[0])) <= 1e-6
+    for k in ("w", "b"):
+        assert torch.allclose(got[1][k].cpu(), want[1][k], rtol=0,
+                              atol=1e-6), k
