@@ -149,6 +149,51 @@ failure:
    min(4, count) ranks, one card each, must give the CPU's loss and
    gradients (`dist_pipeline_errors`, which the CPU tests run under
    gloo); with one card a line says that it did not run.
+14. The model path (`repro_torch.models`, `repro_torch.launch.serve`),
+   TF32 off, each kernel's launch count set to 0 before each run that is
+   read.  qwen2-7b (`src/repro/configs/qwen2_7b.py`) at full width and
+   depth, bf16, weights drawn from ``--seed`` on the card, its serving
+   layout (``parallel_for("decode_32k")``): `serve` answers 8 requests
+   drawn as the reference launcher draws them (``--seed``), with 4 slots,
+   a cache of 256 positions and up to 23 new tokens each (a prefill runs
+   one prompt at B = 1 into its slot's cache rows).  Every request must
+   finish with tokens in the vocabulary, kernel 5 must launch 28 times
+   per prefill call (every train/prefill attention layer) and no other
+   kernel may launch (decode runs `decode_attention` in PyTorch).  In the
+   first run every prefill attention call's kernel 5 output is held to
+   `chunked_attention` on the same q, k and v at phase 7's tolerance on
+   the data's scale (`scaled_err`).  A second run is timed warm and must
+   serve the same tokens.  Timed with
+   CUDA events: the prefill of 1 × 4096 tokens (with kernel 5's share:
+   28 × phase 10's device time of one launch at this width, over it) and
+   the median decode step at B = 4.  Then layer 0's prefill attention at
+   B = 1, S = 4096, bf16: kernel 5 through `self_attention` against
+   `chunked_attention` on the same tensors on the card, at phase 7's
+   tolerance (`attention_err`), before and after the ``wo`` projection,
+   and at B = 4 with other tokens in each row for S = 4, 13 and 23
+   (shorter than one 128-row tile, a tensor map per sequence).
+   Then the same model cast to float32 (30.5 GB): at B = 4, S = 512, a
+   prefill of S − 1 tokens through kernel 5 and the decode of token S
+   through `decode_attention` (the cache in float32) against the train
+   forward's logits at S − 1: within `PAIR_REL` of the largest logit, the
+   top token equal in every row, with the attention projections at unit
+   fan-in (`unit_fan_in`; the reference's init is run first and printed,
+   not gated).  Then rwkv6-1.6b (`src/repro/configs/rwkv6_1_6b.py`) at
+   full width and depth in float32, B = 1, S = 4096: the train forward
+   launches kernel 6 once a layer (24) and nothing else, and is timed
+   (median of 3); the prefill with a cache (the chunked form in PyTorch,
+   no launch) and the token-by-token recurrence over the first 64 tokens
+   are compared with it in logits, of the largest logit: with the
+   reference's init at full depth (printed, not gated), then with the
+   time-mix projections at unit fan-in and the bonus u drawn from N(0, 1)
+   (the reference's init sets it to 0) for the model cut to 1 and 2
+   layers (within `RWKV_SHALLOW_REL`) and at full depth (within
+   `RWKV_REL`).  Layer 0's time-mix, kernel 6 against the chunked form
+   from a zero state, must agree within `RWKV_TM_REL` of the largest
+   output over 4 draws of the tokens and of u.  Each model's weights are
+   freed before the next.  The launches of the server's first run and of
+   the rwkv train forward are each kernel's ``model_path_launches`` in the
+   JSON line.
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -195,6 +240,32 @@ bf16 to 2e-2, one rounding of the output to bf16 (2**-8 relative) from
 float32 sums in another order.  The plain versions and the yardsticks run
 with TF32 off.
 
+Phase 14 compares the model's paths at the scale of its random weights.
+The reference draws a stacked (D, heads, hd) projection with the head
+count as its fan-in (``shape[-2]``), so at qwen2-7b's width layer 0's q,
+k and v have an RMS of 10–30 (printed) and the scores of about 300:
+phase 7's row-scaled atol, capped at 1 for inputs of unit scale, would be
+tighter than the kernel's bf16 rounding of P (2**-9 of |v|), so kernel 5
+in layer 0 is held to it after both outputs are divided by the
+reference's RMS (`scaled_err`), in every prefill attention call of the
+server's first run too.  The same scores make the random network chaotic:
+a float32 rounding difference between two correct paths grows with depth
+to O(1) logits (the reference init's pair is printed, not gated).  So the
+float32 comparisons are gated with the projections rescaled to the fan-in
+of their contraction (D, and heads x hd; `unit_fan_in`).  `PAIR_REL` =
+1e-4 is the bar the reduced card tests hold the same pair to, 20 times the
+measured difference (PERF.md §6), room for the kernel's float32 products
+(about 20 bits) and cuBLAS's sum order.  RWKV-6 still grows a difference
+with depth at unit fan-in, so kernel 6 is held where that growth has not
+begun: layer 0's time-mix within `RWKV_TM_REL` = 1e-4 of its largest
+output (5.1e-6 to 6.6e-6 over the 4 draws, PERF.md §6), the model cut to
+1 and 2 layers within `RWKV_SHALLOW_REL` = 1e-4 of the largest logit
+(4.4e-6 and 1.5e-5): 15 and 6.5 times the largest readings.  At 24
+layers the difference is chaotic in the weights (1.0e-2 with u = 0,
+5.6e-4 with u drawn), so
+`RWKV_REL` = 2e-2 there only guards against a path that computes another
+function, which is off by O(1).
+
 Phase 13 compares products in float32 with TF32 off.  At D = 16 a sum of
 16 products differs by a few units of the last place between orders (the
 card's cuBLAS, the CPU's, the batched and the per-stage products), so the
@@ -221,6 +292,7 @@ import ctypes
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -289,7 +361,12 @@ SMALL_ATTN = ((2, 128, 4, 2, 64, True, "float32"),
               (1, 128, 4, 2, 16, True, "float32"),
               (1, 128, 4, 2, 16, True, "bfloat16"),
               (2, 192, 4, 2, 80, True, "float32"),
-              (2, 192, 4, 2, 80, True, "bfloat16"))
+              (2, 192, 4, 2, 80, True, "bfloat16"),
+              # the server's prompts, shorter than one tile, at B = 4 and
+              # qwen2-7b's width (phase 14 holds them inside the model)
+              (4, 4, 28, 4, 128, True, "bfloat16"),
+              (4, 13, 28, 4, 128, True, "bfloat16"),
+              (4, 23, 28, 4, 128, True, "bfloat16"))
 #: (B, S, H, hd, chunk, decay scale, dtype): tests/test_kernels.py's cases,
 #: hd = 128 at the default chunk, bf16, chunk 16 at hd 16, and a padded hd
 #: with a chunk that is no multiple of the kernel's 16-row sub-chunks
@@ -346,6 +423,30 @@ PIPE_WIDE_RTOL = 1e-4               # wide shape, of each leaf's max |grad|
 #: the optimizers' stacked parameter: four stages of a qwen2-7b-wide square
 OPT_SHAPE = (4, 3584, 3584)
 OPT_STEPS = 2
+#: phase 14: qwen2-7b served at full width and depth (src/repro/configs/
+#: qwen2_7b.py) as the reference launcher serves it; its prefill timed at
+#: B = 1, S = 4096 (where phase 14 also holds kernel 5 in layer 0 to the
+#: chunked form); a float32 prefill/decode pair at B = 4, S = 512; and
+#: rwkv6-1.6b (src/repro/configs/rwkv6_1_6b.py) at S = 4096, its first 64
+#: tokens decoded step by step
+MODEL_ARCH, RWKV_ARCH = "qwen2-7b", "rwkv6-1.6b"
+SERVE = dict(requests=8, slots=4, max_seq=256, max_new=24)
+MODEL_PREFILL_S = 4096
+PAIR = dict(B=4, S=512)
+RWKV_S, RWKV_PREFIX = 4096, 64
+MODEL_REPS, DECODE_REPS = 3, 10
+#: prompts shorter than kernel 5's 128-row tile at B = 4, bf16: the
+#: shortest, a middle and the longest prompt the launcher draws
+SHORT_B, SHORT_S = 4, (4, 13, 23)
+#: rwkv6-1.6b cut to these depths, and layer 0's time-mix over this many
+#: draws of its tokens and u
+RWKV_DEPTHS, RWKV_DRAWS = (1, 2), 4
+#: phase 14's float32 bars, of the largest logit or output (see the
+#: docstring)
+PAIR_REL = 1e-4
+RWKV_TM_REL = 1e-4
+RWKV_SHALLOW_REL = 1e-4
+RWKV_REL = 2e-2
 #: kernels redesigned for Hopper after their first port
 REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
               "flash_attention", "gla_timemix"}
@@ -1107,6 +1208,397 @@ def pipeline_phase(seed: int, smi_line: str, dev=None) -> None:
             f"cards: max abs err against the CPU {json.dumps(err)}")
 
 
+def unit_fan_in(layers: dict) -> None:
+    """Rescale, in place, the stacked input projections (L, D, heads, hd)
+    and output projections (L, heads, hd, D) of attention or the time-mix
+    to std 1 / sqrt(fan-in of their contraction): D, and heads x hd.  The
+    reference's init takes ``shape[-2]`` (the head count, the head width)
+    as their fan-in, which at qwen2-7b's width gives layer 0 scores of RMS
+    about 300 (see the docstring)."""
+    for key in ("attn", "tm"):
+        for name, w in layers.get(key, {}).items():
+            if name in ("wq", "wk", "wv", "wr", "wg"):
+                w.mul_((w.shape[-2] / w.shape[-3]) ** 0.5)
+            elif name == "wo":
+                w.mul_((1.0 / w.shape[-3]) ** 0.5)
+
+
+def model_phase(seed: int, smi_line: str, attn_device_ms: float,
+                dev=None) -> dict:
+    """Phase 14: the model path on the card (see the docstring), ``dev``
+    the card's device and ``attn_device_ms`` kernel 5's device time per
+    launch at qwen2-7b's width, S = 4096, bf16 (phase 10's row).  Returns
+    each kernel's launches on the model path: the server's run and the
+    rwkv train forward, counted from 0.  Raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.bench import cuda_ms
+    from repro_torch.device import HBM_BW
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.serve import MESH, draw_requests, serve
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.models import Rules, build
+    from repro_torch.models.attention import (_heads_out, _project_qkv,
+                                              chunked_attention,
+                                              self_attention)
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    from repro_torch.models.rwkv import apply_time_mix
+    from repro_torch.tree import tree_leaves, tree_map
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 14 runs with TF32 off")
+    dev = torch.device("cuda" if dev is None else dev)
+    rng = np.random.default_rng(seed)
+    path = {k.source.stem: 0 for k in cuda_lib.KERNELS}
+
+    def zero():
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+
+    def counted():
+        return {k.source.stem: k.launches for k in cuda_lib.KERNELS}
+
+    def tokens(B, S, vocab):
+        return torch.from_numpy(rng.integers(0, vocab, (B, S)).astype(
+            np.int32)).to(dev)
+
+    def f32(tree):
+        return tree_map(lambda a: a.float() if a.is_floating_point() else a,
+                        tree)
+
+    def rel_err(got, want) -> float:
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    def scaled_err(o, ref) -> float:
+        """Kernel 5's output against the chunked form's at phase 7's bf16
+        tolerance, both divided by the chunked output's RMS (see the
+        docstring)."""
+        rms = ref.float().square().mean().sqrt()
+        return attention_err(o.float() / rms, ref.float() / rms,
+                             ATTN_TOL[str(ref.dtype)])
+
+    served_attn = []                      # (B, S, scaled_err) per call
+
+    def checked_attention(q, k, v, causal=True):
+        """`self_attention` (kernel 5), held to `chunked_attention` on the
+        same q, k and v: the server's first run calls this instead."""
+        o = self_attention(q, k, v, causal=causal)
+        served_attn.append((q.shape[0], q.shape[1], scaled_err(
+            o, chunked_attention(q, k, v, causal=causal))))
+        return o
+
+    # ---- qwen2-7b served at full width and depth, bf16
+    bundle = configs.get(MODEL_ARCH)
+    cfg = bundle.model
+    model = build(cfg, bundle.parallel_for("decode_32k", multi_pod=False))
+    rules = Rules.make(MESH, model.par)
+    t0 = time.perf_counter()
+    params = model.init(seed, dev)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    say(f"phase 14 {MODEL_ARCH}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, H {cfg.num_heads}, KV {cfg.num_kv_heads}, hd "
+        f"{cfg.head_dim_}, vocab {cfg.vocab_size}; {n_params:.4g} "
+        f"parameters in bf16 drawn from seed {seed} on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = []
+    for run in range(2):
+        reqs = draw_requests(SERVE["requests"], cfg.vocab_size,
+                             SERVE["max_new"], seed)
+        zero()
+        if run == 0:
+            attention_mod.self_attention = checked_attention
+        try:
+            done, c = serve(model, params, reqs, SERVE["slots"],
+                            SERVE["max_seq"], dev)
+        finally:
+            attention_mod.self_attention = self_attention
+        launched = counted()
+        served = sum(len(r.generated) for r in done)
+        check(len(done) == SERVE["requests"] and all(r.done for r in done),
+              f"phase 14 served {len(done)} of {SERVE['requests']}, "
+              f"{sum(r.done for r in done)} finished")
+        check(all(0 <= t < cfg.vocab_size for r in done
+                  for t in r.generated), "phase 14: a token past the vocab")
+        check(c["prefills"] == SERVE["requests"]
+              and launched["flash_attention"] == cfg.num_layers
+              * c["prefills"] and not any(
+                  n for k, n in launched.items() if k != "flash_attention"),
+              f"phase 14 serve: {json.dumps(launched)} launches for "
+              f"{c['prefills']} prefill calls of {cfg.num_layers} layers")
+        if run == 0:
+            for k, n in launched.items():
+                path[k] += n
+            outputs = {r.rid: list(r.generated) for r in done}
+        else:
+            check({r.rid: r.generated for r in done} == outputs,
+                  "phase 14: the second run served other tokens")
+        runs.append((served, c, launched["flash_attention"]))
+    worst_served = max(e for _, _, e in served_attn)
+    check(len(served_attn) == runs[0][2] and worst_served <= 1.0,
+          f"phase 14 serve: kernel 5 against chunked_attention in "
+          f"{len(served_attn)} prefill attention calls, worst {worst_served}"
+          f" of phase 7's tolerance")
+    say(f"phase 14 serve {MODEL_ARCH}: each of the first run's "
+        f"{len(served_attn)} prefill attention calls (B = "
+        f"{sorted({b for b, _, _ in served_attn})}, S = "
+        f"{min(n for _, n, _ in served_attn)}-"
+        f"{max(n for _, n, _ in served_attn)}, bf16) held to "
+        f"chunked_attention on the same q, k, v: worst {worst_served:.3g} "
+        f"of phase 7's tolerance on the data's scale")
+    for run, (served, c, fa_launches) in enumerate(runs):
+        say(f"phase 14 serve {MODEL_ARCH} ("
+            f"{'first, checked' if run == 0 else 'warm'} run): "
+            f"{SERVE['requests']} requests, {served} tokens in "
+            f"{c['seconds']:.4f} s host clock, {served / c['seconds']:.2f} "
+            f"tokens/s, {c['steps']} decode steps, occupancy "
+            f"{c['slot_steps'] / max(c['steps'], 1):.2f}/{SERVE['slots']}, "
+            f"{c['prefills']} prefill calls, kernel 5 launched "
+            f"{fa_launches} times; {smi_line}")
+
+    # ---- times: the prefill of 1 x 4096 and a decode step at B = 4
+    S = MODEL_PREFILL_S
+    toks = tokens(1, S, cfg.vocab_size)
+    cache = model.init_cache(1, S, dev)
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: model.prefill_fn(
+            params, {"tokens": toks}, rules, cache), MODEL_REPS)
+    share = cfg.num_layers * attn_device_ms / prefill_ms
+    say(f"phase 14 {MODEL_ARCH} prefill 1 x {S} tokens, bf16: "
+        f"{prefill_ms:.3f} ms (CUDA events, median of {MODEL_REPS}); kernel "
+        f"5: {cfg.num_layers} launches x {attn_device_ms:.4f} ms (phase 10's"
+        f" device time) = {share:.4f} of it; {smi_line}")
+    del cache
+    B = SERVE["slots"]
+    cache = model.init_cache(B, SERVE["max_seq"], dev)
+    dtoks = tokens(B, 1, cfg.vocab_size)
+    with torch.no_grad():
+        decode_ms = cuda_ms(lambda: model.decode_fn(
+            params, {"tokens": dtoks, "pos": SERVE["max_seq"] // 2}, cache,
+            rules), DECODE_REPS)
+    with torch.no_grad(), torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            model.decode_fn(params, {"tokens": dtoks,
+                                     "pos": SERVE["max_seq"] // 2}, cache,
+                            rules)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    launches = sum(e.count for e in events
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA)
+    busy = (f"{device_us / 3e3:.3f} ms of device time a step "
+            f"({device_us / 3e3 / decode_ms:.3f} of it busy; "
+            f"{launches / 3:.0f} device kernels a step, torch.profiler)"
+            if device_us else "device time not measured (the profiler "
+            "recorded none)")
+    weight_bytes = sum(a.numel() * a.element_size()
+                       for a in tree_leaves(params))
+    say(f"phase 14 {MODEL_ARCH} decode step, B = {B}, cache "
+        f"{SERVE['max_seq']}: {decode_ms:.3f} ms (median of {DECODE_REPS}); "
+        f"{busy}; its weights' bytes over the card's memory rate "
+        f"{weight_bytes / HBM_BW * 1e3:.3f} ms; {smi_line}")
+    del cache
+
+    # ---- kernel 5 inside the model: one prefill attention layer, bf16
+    lp = tree_map(lambda a: a[0], params["layers"])
+    with torch.no_grad():
+        x = apply_norm(lp["attn_norm"], embed_tokens(
+            params["embed"], toks, cfg, rules), cfg)
+        pos = torch.arange(S, device=dev)[None]
+        q, k, v = _project_qkv(lp["attn"], x, cfg, rules, pos)
+        zero()
+        o = self_attention(q, k, v, causal=True)
+        check(cuda_lib.FLASH_ATTENTION.launches == 1,
+              "phase 14: attention() did not launch kernel 5")
+        ref = chunked_attention(q, k, v, causal=True)
+        tol = ATTN_TOL[str(q.dtype)]
+        y, y_ref = _heads_out(o, lp["attn"]["wo"]), _heads_out(
+            ref, lp["attn"]["wo"])
+        rms = {n: float(a.float().square().mean().sqrt())
+               for n, a in (("q", q), ("k", k), ("v", v), ("o", ref),
+                            ("y", y_ref))}
+        # phase 7's tolerance on the data's own scale (see the docstring)
+        worst = attention_err(o / rms["o"], ref / rms["o"], tol)
+        worst_y = attention_err(y[:, :, None] / rms["y"],
+                                y_ref[:, :, None] / rms["y"], tol)
+        raw = attention_err(o, ref, tol)
+    check(worst <= 1.0 and worst_y <= 1.0,
+          f"phase 14 kernel 5 in layer 0: {worst}, {worst_y} of the "
+          f"tolerance")
+    say(f"phase 14 {MODEL_ARCH} layer 0 prefill attention, B = 1, S = {S}, "
+        f"bf16: kernel 5 against chunked_attention on the card, max abs "
+        f"{float((o.float() - ref.float()).abs().max()):.3g}, RMS "
+        + ", ".join(f"{n} {r:.4g}" for n, r in rms.items())
+        + f"; on the data's scale {worst:.3g} of phase 7's tolerance "
+        f"({raw:.3g} unscaled); after wo {worst_y:.3g} of it")
+    del x, q, k, v, o, ref, y, y_ref
+    # prompts shorter than one 128-row tile, B = 4 (a tensor map per
+    # sequence), each row its own tokens
+    short = {}
+    with torch.no_grad():
+        for n in SHORT_S:
+            x = apply_norm(lp["attn_norm"], embed_tokens(
+                params["embed"], tokens(SHORT_B, n, cfg.vocab_size), cfg,
+                rules), cfg)
+            pos = torch.arange(n, device=dev)[None].expand(SHORT_B, n)
+            q, k, v = _project_qkv(lp["attn"], x, cfg, rules, pos)
+            short[n] = scaled_err(self_attention(q, k, v, causal=True),
+                                  chunked_attention(q, k, v, causal=True))
+    check(max(short.values()) <= 1.0, f"phase 14 kernel 5 in layer 0 at "
+          f"B = {SHORT_B}: {short} of the tolerance")
+    say(f"phase 14 {MODEL_ARCH} layer 0 prefill attention, B = {SHORT_B}, "
+        f"bf16, kernel 5 against chunked_attention on the data's scale: "
+        + ", ".join(f"S = {n} {e:.3g}" for n, e in short.items())
+        + " of phase 7's tolerance")
+    del x, q, k, v, lp
+
+    # ---- float32 at full width: prefill S - 1 through kernel 5, decode S
+    params = f32(params)                  # the bf16 leaves go as they cast
+    torch.cuda.empty_cache()
+    B, S = PAIR["B"], PAIR["S"]
+    ptoks = tokens(B, S, cfg.vocab_size)
+
+    def pair():
+        with torch.no_grad():
+            full = model.forward(params, {"tokens": ptoks}, rules,
+                                 "train")[0][:, -1]
+            cache = f32(model.init_cache(B, S, dev))
+            _, cache = model.prefill_fn(params, {"tokens": ptoks[:, :S - 1]},
+                                        rules, cache)
+            dec, _ = model.decode_fn(params, {"tokens": ptoks[:, S - 1:],
+                                              "pos": S - 1}, cache, rules)
+        dec = dec[:, 0]
+        return (rel_err(dec, full), int((dec.argmax(-1)
+                                         == full.argmax(-1)).sum()),
+                float(full.abs().max()))
+
+    ref_err, ref_top1, _ = pair()
+    unit_fan_in(params["layers"])
+    err, top1, top = pair()
+    check(err <= PAIR_REL and top1 == B, f"phase 14 {MODEL_ARCH} float32 "
+          f"prefill/decode against the forward: {err} of the largest logit, "
+          f"top-1 equal in {top1} of {B} rows")
+    say(f"phase 14 {MODEL_ARCH} float32, B = {B}: prefill {S - 1} tokens "
+        f"(kernel 5) and decode token {S} (decode_attention) against the "
+        f"forward's logits at {S - 1}, projections at unit fan-in: "
+        f"{err:.4g} of the largest logit ({top:.4g}; bar {PAIR_REL}), top-1 "
+        f"equal in {top1} of {B} rows; with the reference's init (not "
+        f"gated) {ref_err:.4g}, top-1 equal in {ref_top1}")
+    del params, model
+    torch.cuda.empty_cache()
+
+    # ---- rwkv6-1.6b at full width, float32
+    bundle = configs.get(RWKV_ARCH)
+    rcfg = bundle.model
+    model = build(rcfg, bundle.parallel_for("decode_32k", multi_pod=False))
+    rules = Rules.make(MESH, model.par)
+    params = f32(model.init(seed, dev))
+    rtoks = tokens(1, RWKV_S, rcfg.vocab_size)
+
+    def rwkv_errors(p, train):
+        with torch.no_grad():
+            cache = f32(model.init_cache(1, RWKV_S, dev))
+            zero()
+            pre = model.forward(p, {"tokens": rtoks}, rules, "prefill",
+                                cache)[0]
+            check(not any(counted().values()), "phase 14: rwkv prefill with "
+                  "a cache launched a kernel")
+            cache = f32(model.init_cache(1, RWKV_PREFIX, dev))
+            steps = []
+            for t in range(RWKV_PREFIX):
+                lg, cache = model.decode_fn(p, {
+                    "tokens": rtoks[:, t:t + 1], "pos": t}, cache, rules)
+                steps.append(lg[:, 0])
+            steps = torch.stack(steps, dim=1)
+        check(all(bool(torch.isfinite(a).all()) for a in (train, pre, steps)),
+              f"phase 14 {RWKV_ARCH}: logits not finite")
+        return {"train vs prefill": rel_err(train, pre),
+                "stepwise vs train": rel_err(steps, train[:, :RWKV_PREFIX]),
+                "stepwise vs prefill": rel_err(steps,
+                                               pre[:, :RWKV_PREFIX])}
+
+    def train_forward(p=None):
+        with torch.no_grad():
+            return model.forward(params if p is None else p,
+                                 {"tokens": rtoks}, rules, "train")[0]
+
+    zero()
+    train = train_forward()
+    torch.cuda.synchronize()
+    launched = counted()
+    check(launched["gla_timemix"] == rcfg.num_layers and not any(
+        n for k, n in launched.items() if k != "gla_timemix"),
+        f"phase 14 {RWKV_ARCH} train forward: {json.dumps(launched)}")
+    for k, n in launched.items():
+        path[k] += n
+    train_ms = cuda_ms(train_forward, MODEL_REPS)
+    ref_errs = rwkv_errors(params, train)
+    del train
+    # the projections at unit fan-in and the bonus u drawn N(0, 1) (the
+    # reference's init sets it to 0), then the model cut to its first n
+    # layers (the stack loops over the stacked parameters' leading
+    # dimension, so a slice of them is a shallower model)
+    unit_fan_in(params["layers"])
+    tm = params["layers"]["tm"]
+    tm["u"].copy_(torch.from_numpy(rng.standard_normal(tuple(
+        tm["u"].shape)).astype(np.float32)))
+    depth_errs = {}
+    for n in RWKV_DEPTHS + (rcfg.num_layers,):
+        cut = dict(params, layers=tree_map(lambda a: a[:n],
+                                           params["layers"]))
+        depth_errs[n] = rwkv_errors(cut, train_forward(cut))
+    # layer 0's time-mix: kernel 6 against the chunked form from a zero
+    # state, over RWKV_DRAWS draws of the tokens and of layer 0's u
+    lp = tree_map(lambda a: a[0], params["layers"])
+    H, hd = rcfg.num_heads, rcfg.head_dim_
+    zero_state = {"shift": torch.zeros((1, rcfg.d_model), device=dev),
+                  "state": torch.zeros((1, H, hd, hd), device=dev)}
+    tm_errs = []
+    with torch.no_grad():
+        for _ in range(RWKV_DRAWS):
+            lp["tm"]["u"].copy_(torch.from_numpy(rng.standard_normal(
+                (H, hd)).astype(np.float32)))
+            h = apply_norm(lp["tm_norm"], embed_tokens(
+                params["embed"], tokens(1, RWKV_S, rcfg.vocab_size), rcfg,
+                rules), rcfg)
+            got, _ = apply_time_mix(lp["tm"], h, rcfg, rules, "train", None)
+            want, _ = apply_time_mix(lp["tm"], h, rcfg, rules, "prefill",
+                                     dict(zero_state))
+            tm_errs.append(rel_err(got, want))
+    shallow = max(max(depth_errs[n].values()) for n in RWKV_DEPTHS)
+    check(max(tm_errs) <= RWKV_TM_REL and shallow <= RWKV_SHALLOW_REL
+          and max(depth_errs[rcfg.num_layers].values()) <= RWKV_REL,
+          f"phase 14 {RWKV_ARCH}: layer 0's time-mix {tm_errs} (bar "
+          f"{RWKV_TM_REL}), by depth {depth_errs} (bars {RWKV_SHALLOW_REL} "
+          f"at {RWKV_DEPTHS} layers, {RWKV_REL} at {rcfg.num_layers})")
+    say(f"phase 14 {RWKV_ARCH} float32, S = {RWKV_S}: train forward "
+        f"{launched['gla_timemix']} launches of kernel 6, {train_ms:.3f} ms "
+        f"(median of {MODEL_REPS}); {smi_line}")
+    say(f"phase 14 {RWKV_ARCH} layer 0 time-mix, S = {RWKV_S}, kernel 6 "
+        f"against the chunked form, of the largest output, {RWKV_DRAWS} "
+        f"draws of tokens and u: " + ", ".join(f"{e:.4g}" for e in tm_errs)
+        + f" (bar {RWKV_TM_REL})")
+    for n, errs in depth_errs.items():
+        say(f"phase 14 {RWKV_ARCH} cut to {n} layers, against the chunked "
+            f"prefill and the stepwise recurrence over {RWKV_PREFIX} tokens,"
+            f" of the largest logit, projections at unit fan-in, u drawn: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+            + f" (bar {RWKV_REL if n == rcfg.num_layers else RWKV_SHALLOW_REL})")
+    say(f"phase 14 {RWKV_ARCH} with the reference's init, {rcfg.num_layers} "
+        f"layers (not gated): " + ", ".join(
+            f"{k} {v:.4g}" for k, v in ref_errs.items()))
+    del params, model, lp, h, got, want
+    torch.cuda.empty_cache()
+    say(f"phase 14 kernel launches on the model path: {json.dumps(path)}")
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1734,9 +2226,10 @@ def main() -> int:
     for B, S, H, KV, hd, causal, dname in SMALL_ATTN:
         dt = getattr(torch, dname)
         q, k, v = qkv(B, S, H, KV, hd, dt)
-        got = fa.flash_attention(q, k, v, causal=causal, bq=64, bk=64)
-        want = fa._flash_attention_plain(q, k, v, causal=causal, bq=64,
-                                         bk=64)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        blk = math.gcd(S, 64)             # the plain version's blocks
+        want = fa._flash_attention_plain(q, k, v, causal=causal, bq=blk,
+                                         bk=blk)
         tol = 1e-5 if dt == torch.float32 else ATTN_TOL[str(dt)]
         attn_worst[dname] = max(attn_worst.get(dname, 0.0),
                                 max_err(got, want))
@@ -1946,6 +2439,15 @@ def main() -> int:
     t0 = time.perf_counter()
     pipeline_phase(args.seed, smi_line)
     say(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------- phase 14 --
+    t0 = time.perf_counter()
+    attn_row = next(r for r in rows
+                    if r["name"] == f"flash_attention[bfloat16 S={ATTN['S']}]")
+    model_launches = model_phase(args.seed, smi_line, attn_row["device_ms"])
+    for row in rows:
+        row["model_path_launches"] = model_launches[row["name"].split("[")[0]]
+    say(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     say(smi_line)

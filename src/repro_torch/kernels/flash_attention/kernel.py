@@ -30,7 +30,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128)
 
 
-def _check(q, k, v, bq: int, bk: int) -> None:
+def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B,S,H,hd) and k, v "
                          f"(B,S,KV,hd), got {tuple(q.shape)}, "
@@ -39,9 +39,6 @@ def _check(q, k, v, bq: int, bk: int) -> None:
     if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) or H % k.shape[2]:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (need KV | H)")
-    if S % bq or S % bk:
-        raise ValueError(f"S = {S} must be a multiple of bq = {bq} and "
-                         f"bk = {bk}")
 
 
 def padded_width(hd: int) -> int:
@@ -71,8 +68,12 @@ def _flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
                            bk: int = 128, scale=None) -> torch.Tensor:
     """The plain PyTorch version: the reference kernel's (q block, kv block)
     grid, with (m, l, acc) carried across the kv blocks, for all (B, H) at
-    once.  Its two products go through `_product`."""
+    once.  Its two products go through `_product`.  Requires ``S % bq ==
+    S % bk == 0`` (ValueError otherwise)."""
     B, S, H, hd = q.shape
+    if S % bq or S % bk:
+        raise ValueError(f"S = {S} must be a multiple of bq = {bq} and "
+                         f"bk = {bk}")
     KV = k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
     heads = torch.arange(H, device=q.device) % KV
@@ -107,12 +108,12 @@ def _flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
 def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
                     bk: int = 128, scale=None) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd) in q's dtype.
-    Requires ``S % bq == S % bk == 0`` (ValueError otherwise).  Kernel 5,
-    ``csrc/flash_attention.cu``, on CUDA tensors (float32, bf16 or f16, hd
-    up to 128, run at 32, 64 or 128 with zero channels; its own q and kv
-    tiles are 128 rows);
-    `_flash_attention_plain` on CPU ones."""
-    _check(q, k, v, bq, bk)
+    Kernel 5, ``csrc/flash_attention.cu``, on CUDA tensors (float32, bf16
+    or f16, hd up to 128, run at 32, 64 or 128 with zero channels; its own
+    q and kv tiles are 128 rows and take any S, so ``bq`` and ``bk`` do
+    not reach it); `_flash_attention_plain` on CPU ones, which requires
+    ``S % bq == S % bk == 0``."""
+    _check(q, k, v)
     if q.device.type == "cpu":
         return _flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk,
                                       scale=scale)

@@ -2,8 +2,9 @@
 online-softmax attention.
 
 `chunked_attention` is a copy of `repro.models.attention.chunked_attention`
-(that function only; the port has no models package yet), with the
-reference's numerics: q scaled by hd^-½ in the input dtype, scores and the
+(`repro_torch.models.attention` imports it from here, as the CPU path of
+train and prefill attention and as cross attention), with the reference's
+numerics: q scaled by hd^-½ in the input dtype, scores and the
 PV product accumulated in float32, and one bf16 quirk kept — the
 probabilities are cast to ``v.dtype`` before the PV product (the Pallas
 kernel keeps them in float32; its plain version in `kernel.py` follows the

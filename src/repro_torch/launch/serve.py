@@ -1,0 +1,128 @@
+"""Batched serving launcher: continuous batching over the model's prefill
+and decode steps.
+
+The port of `repro.launch.serve`, on one device (the card unless
+``--device cpu``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --reduced [--requests 16] [--slots 4] [--max-seq 128] [--max-new 24] \\
+        [--seed 0] [--device cuda|cpu]
+
+`serve` is the callable part: it runs the reference launcher's two closures
+around a built model and its parameters (a prefill of one prompt into the
+admitted slot's cache rows, and a decode step of every slot at the largest
+slot position) under `repro_torch.serve`'s batcher.  The reference prefills
+the prompt broadcast to every slot and keeps the admitted slot's rows; each
+row is computed alone, so a prefill at B = 1 on a view of that slot's rows
+gives the same rows and logits.  `main` draws the parameters from ``--seed``
+and the requests as the reference launcher draws them, and prints its line.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import configs
+from ..configs.base import reduced as reduce_cfg
+from ..models import build
+from ..models.common import resolve_device
+from ..models.sharding import Rules
+from ..serve import BatchSlots, ContinuousBatcher, Request
+
+#: the one device the port runs a model on, as a mesh of axis sizes
+MESH = {"data": 1, "model": 1}
+
+
+def draw_requests(n: int, vocab_size: int, max_new: int, seed: int = 0
+                  ) -> List[Request]:
+    """The reference launcher's requests: prompts of 4–23 random tokens, each
+    asking for 2 to ``max_new`` − 1 new tokens, from ``default_rng(seed)``
+    (the reference draws with seed 0)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for r in range(n):
+        plen = int(rng.integers(4, 24))
+        out.append(Request(
+            r, rng.integers(0, vocab_size, plen).astype(np.int32),
+            max_new_tokens=int(rng.integers(2, max_new))))
+    return out
+
+
+def serve(model, params, requests: List[Request], slots: int, max_seq: int,
+          device=None) -> Tuple[List[Request], Dict[str, float]]:
+    """Serve ``requests`` to completion with ``slots`` decode slots and a
+    cache of ``max_seq`` positions on ``device`` (the card where None; the
+    parameters must be there).  Returns the finished requests and the
+    batcher's counters: ``steps`` (decode steps), ``slot_steps`` (occupied
+    slots summed over them), ``prefills`` (prefill calls) and ``seconds``
+    (host clock of the whole run)."""
+    dev = resolve_device(device)
+    rules = Rules.make(MESH, model.par)
+    B = slots
+    box = {"cache": model.init_cache(B, max_seq, dev), "prefills": 0}
+
+    def prefill_fn(slot: int, prompt) -> int:
+        # single-slot prefill at B = 1 on a view of `slot`'s cache rows
+        # (cache leaves are (L, B, …): batch is dim 1); the model writes its
+        # cache in place, so the other slots' rows stay as they were
+        toks = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
+        view = {k: v[:, slot:slot + 1] for k, v in box["cache"].items()}
+        logits, _ = model.prefill_fn(params, {"tokens": toks}, rules, view)
+        box["prefills"] += 1
+        return int(torch.argmax(logits[0, -1]))
+
+    def step_fn(tokens, pos):
+        batch = {"tokens": torch.as_tensor(tokens, device=dev),
+                 "pos": int(pos.max())}
+        logits, box["cache"] = model.decode_fn(params, batch, box["cache"],
+                                               rules)
+        return torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+
+    batcher = ContinuousBatcher(
+        BatchSlots(capacity=B, max_seq=max_seq), prefill_fn, step_fn)
+    for req in requests:
+        batcher.submit(req)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        done = batcher.run_until_drained()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    return done, {"steps": batcher.steps, "slot_steps": batcher.slot_steps,
+                  "prefills": box["prefills"], "seconds": seconds}
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True, choices=configs.arch_names())
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=24)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
+    args = ap.parse_args(argv)
+
+    bundle = configs.get(args.arch)
+    cfg = reduce_cfg(bundle.model) if args.reduced else bundle.model
+    model = build(cfg, bundle.parallel_for("decode_32k", multi_pod=False))
+    params = model.init(args.seed, args.device)
+    requests = draw_requests(args.requests, cfg.vocab_size, args.max_new,
+                             args.seed)
+    done, c = serve(model, params, requests, args.slots, args.max_seq,
+                    args.device)
+    total_tokens = sum(len(r.generated) for r in done)
+    dt = c["seconds"]
+    print(f"served {len(done)} requests, {total_tokens} tokens in {dt:.1f}s "
+          f"({total_tokens/dt:.1f} tok/s, {c['steps']} decode steps, "
+          f"avg batch occupancy {c['slot_steps']/max(c['steps'],1):.2f}/"
+          f"{args.slots})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,143 @@
+"""Shared layers: norms, MLPs, embeddings, rotary embeddings.
+
+The port of `repro.models.layers`, with the reference's numerics: norms in
+float32, products in the activations' dtype, and a Python scalar that
+multiplies a low-precision tensor rounded to its dtype first, as JAX rounds a
+weakly typed scalar (`scaled`).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .common import PSpec, bias, linear, norm_scale
+from .sharding import Rules
+
+
+def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x * scale`` with the scale rounded to x's dtype first, as JAX
+    multiplies an array by a weakly typed Python float."""
+    return x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+
+
+# ------------------------------------------------------------------- norms
+
+def norm_plan(cfg: ModelConfig, d: Optional[int] = None) -> Dict:
+    d = d or cfg.d_model
+    p = {"scale": norm_scale(d)}
+    if cfg.norm == "layernorm":
+        p["bias"] = bias(d)
+    return p
+
+
+def apply_norm(p, x, cfg: ModelConfig):
+    x32 = x.float()
+    if cfg.norm == "layernorm":
+        mean = x32.mean(-1, keepdim=True)
+        var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = (x32 * x32).mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(ms + 1e-6) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rms_head(x, scale, eps=1e-6):
+    """qk-norm: per-head RMS norm."""
+    x32 = x.float()
+    ms = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+# -------------------------------------------------------------------- MLP
+
+def mlp_plan(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
+    D, F_ = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "silu":           # SwiGLU
+        return {"wi_gate": linear(D, F_, names=("wfsdp", "wtp")),
+                "wi_up": linear(D, F_, names=("wfsdp", "wtp")),
+                "wo": linear(F_, D, names=("wtp", "wfsdp"))}
+    return {"wi": linear(D, F_, names=("wfsdp", "wtp")),
+            "wo": linear(F_, D, names=("wtp", "wfsdp"))}
+
+
+def apply_mlp(p, x, cfg: ModelConfig, rules: Rules):
+    if cfg.act == "silu":
+        g = x @ p["wi_gate"]
+        u = x @ p["wi_up"]
+        h = F.silu(g) * u
+    else:
+        h = x @ p["wi"]
+        # jax.nn.gelu is the tanh approximation
+        h = (F.gelu(h, approximate="tanh") if cfg.act == "gelu"
+             else torch.square(F.relu(h)))
+    h = rules.constrain(h, "batch", "seq", "mlp_act")
+    return h @ p["wo"]
+
+
+# -------------------------------------------------------------- embeddings
+
+def embed_plan(cfg: ModelConfig) -> Dict:
+    V, D = cfg.padded_vocab(), cfg.d_model
+    p = {"embedding": PSpec((V, D), ("vocab_act", "wfsdp"), "normal", 1.0)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = PSpec((D, V), ("wfsdp", "vocab_act"), "normal", 1.0)
+    return p
+
+
+def embed_tokens(p, tokens, cfg: ModelConfig, rules: Rules):
+    x = F.embedding(tokens, p["embedding"])
+    return rules.constrain(x, "batch", "seq", "embed_act")
+
+
+def logits_from(p, x, cfg: ModelConfig, rules: Rules):
+    if cfg.tie_embeddings:
+        out = x @ p["embedding"].T
+    else:
+        out = x @ p["unembed"]
+    out = rules.constrain(out, "batch", "seq", "vocab_act")
+    if cfg.padded_vocab() != cfg.vocab_size:       # mask padding ids
+        pad = cfg.padded_vocab() - cfg.vocab_size
+        mask = torch.cat([torch.zeros(cfg.vocab_size),
+                          torch.full((pad,), -1e9)])
+        out = out + mask.to(out.device, out.dtype)
+    return out
+
+
+def cross_entropy(logits, labels, vocab_size: int) -> torch.Tensor:
+    """Mean next-token loss, fp32, numerically stable."""
+    logits = logits.float()
+    m = logits.amax(-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
+    gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0] \
+        + m[..., 0]
+    return (lse - gold).mean()
+
+
+# ------------------------------------------------------------------ rotary
+
+def rope(x, positions, theta: float):
+    """x: (B, S, H, hd), positions: (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    dev = x.device
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=dev) / half))
+    angles = positions[..., None].float() * freqs              # (B,S,half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, offset=0, device=None):
+    pos = torch.arange(seq, device=device)[:, None] + offset
+    dim = torch.arange(d // 2, device=device)[None, :]
+    angle = pos / (10000 ** (2 * dim / d))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)

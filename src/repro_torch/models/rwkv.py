@@ -1,0 +1,204 @@
+"""RWKV-6 (Finch): attention-free time-mix with data-dependent per-channel
+decay, + squared-ReLU channel-mix.
+
+The port of `repro.models.rwkv`.  Train/prefill run the *chunkwise-parallel*
+form: within a chunk, intra-chunk contributions use decay ratios
+exp(cl_t − cl_s) from the log-decay cumsum; across chunks a (B, H, hd, hd)
+state is carried — the uniform t−1 → t dependence the paper's classifier
+marks FIFO under sequence sharding.  Decode is one recurrent update, O(1) in
+sequence length.
+
+Where the chunked form starts from a zero state and keeps none (mode
+``"train"`` without a cache), the time-mix core on a CUDA tensor is kernel 6
+(`kernels.gla_timemix.kernel.gla_timemix`, ``csrc/gla_timemix.cu``), given
+r, k, v, logw and u in float32 and this module's chunk; it computes the same
+recurrence.  Kernel 6 takes no initial state and returns no final state, so
+prefill with a cache and decode run the chunked form and the one-step
+recurrence in PyTorch on every device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels.gla_timemix.kernel import gla_timemix
+from .attention import _heads_in
+from .common import PSpec
+from .sharding import Rules
+
+LORA = 64
+
+
+def rwkv_time_mix_plan(cfg: ModelConfig) -> Dict:
+    D = cfg.d_model
+    H, hd = cfg.num_heads, cfg.head_dim_
+    return {
+        "mix_rkvwg": PSpec((5, D), (None, "norm"), "zeros"),
+        "wr": PSpec((D, H, hd), ("wfsdp", "heads", None), "normal", 1.0),
+        "wk": PSpec((D, H, hd), ("wfsdp", "heads", None), "normal", 1.0),
+        "wv": PSpec((D, H, hd), ("wfsdp", "heads", None), "normal", 1.0),
+        "wg": PSpec((D, H, hd), ("wfsdp", "heads", None), "normal", 1.0),
+        "wo": PSpec((H, hd, D), ("heads", None, "wfsdp"), "normal", 1.0),
+        # data-dependent decay: w = exp(-exp(w0 + tanh(x W_a) W_b))
+        "w0": PSpec((H, hd), ("heads", None), "zeros"),
+        "wa": PSpec((D, LORA), ("wfsdp", None), "normal", 1.0),
+        "wb": PSpec((LORA, H, hd), (None, "heads", None), "normal", 0.1),
+        "u": PSpec((H, hd), ("heads", None), "zeros"),      # current-token bonus
+        "ln_scale": PSpec((H, hd), ("heads", None), "ones"),  # per-head groupnorm
+    }
+
+
+def rwkv_channel_mix_plan(cfg: ModelConfig) -> Dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {
+        "mix_kr": PSpec((2, D), (None, "norm"), "zeros"),
+        "wk": PSpec((D, F_), ("wfsdp", "wtp"), "normal", 1.0),
+        "wv": PSpec((F_, D), ("wtp", "wfsdp"), "normal", 1.0),
+        "wr": PSpec((D, D), ("wfsdp", "wfsdp"), "normal", 1.0),
+    }
+
+
+def _token_shift(x, prev):
+    """prev-token features; prev: (B, D) last token of previous segment."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+def chunk_size(S: int, chunk: int = 64) -> int:
+    """The chunk C the chunked form runs S at: the reference's rule, the
+    least count of chunks of at most ``chunk`` steps that divides S."""
+    nc = max(1, -(-S // min(chunk, S)))
+    while S % nc:
+        nc += 1
+    return S // nc
+
+
+def _chunked(r, k, v, logw, u, state0, C: int):
+    """The reference's chunkwise-parallel form: (y (B,S,H,hd), final state)
+    from r, k, v (any dtype), logw and u in float32 and a float32 state."""
+    B, S, H, hd = r.shape
+    nc = S // C
+    rc = r.reshape(B, nc, C, H, hd).float()
+    kc = k.reshape(B, nc, C, H, hd).float()
+    vc = v.reshape(B, nc, C, H, hd).float()
+    lw = logw.reshape(B, nc, C, H, hd)
+    cl = torch.cumsum(lw, dim=2)                                # inclusive
+    cl_prev = cl - lw                                           # exclusive
+    tot = cl[:, :, -1]                                          # (B,nc,H,hd)
+    tri = torch.tril(torch.ones((C, C), dtype=torch.float32,
+                                device=r.device), -1)
+    below = (tri > 0)[None, :, :, None, None]
+    state = state0
+    ys = []
+    for c in range(nc):
+        rc_, kc_, vc_ = rc[:, c], kc[:, c], vc[:, c]            # (B,C,H,hd)
+        cl_, clp_, tot_ = cl[:, c], cl_prev[:, c], tot[:, c]
+        # inter-chunk: r_t · (decay(≤t-1 from chunk start) * S_prev)
+        rdec = rc_ * torch.exp(clp_)
+        y_inter = torch.einsum("bthk,bhkd->bthd", rdec, state)
+        # intra-chunk decay via pairwise differences (exponent ≤ 0 where
+        # unmasked)
+        diff = clp_[:, :, None] - cl_[:, None]                   # (B,C,C,H,hd)
+        dec = torch.where(below, diff, -torch.inf)
+        att = torch.einsum("bthk,bshk,btshk->bhts", rc_, kc_, torch.exp(dec))
+        y_intra = torch.einsum("bhts,bshd->bthd", att, vc_)
+        # current token bonus
+        y_diag = torch.einsum("bthk,bthk->bth", rc_ * u, kc_)[..., None] * vc_
+        # state update: S ← exp(tot)·S + Σ_s exp(tot - cl_s) k_s v_sᵀ
+        kdec = kc_ * torch.exp(tot_[:, None] - cl_)
+        state = torch.exp(tot_)[..., None] * state + torch.einsum(
+            "bshk,bshd->bhkd", kdec, vc_)
+        ys.append(y_inter + y_intra + y_diag)
+    return torch.stack(ys, dim=1).reshape(B, S, H, hd), state
+
+
+def apply_time_mix(p, x, cfg: ModelConfig, rules: Rules, mode: str,
+                   cache: Optional[Dict], chunk: int = 64
+                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """cache = {"shift": (B,D), "state": (B,H,hd,hd) fp32}."""
+    B, S, D = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim_
+    prev = (cache["shift"].to(x.dtype) if cache is not None
+            else torch.zeros((B, D), dtype=x.dtype, device=x.device))
+    xx = _token_shift(x, prev)
+    mix = torch.sigmoid(p["mix_rkvwg"].float())                 # (5, D)
+
+    def lerp(i):
+        return (x.float() * mix[i] + xx.float() * (1 - mix[i])).to(x.dtype)
+
+    r = _heads_in(lerp(0), p["wr"])
+    k = _heads_in(lerp(1), p["wk"])
+    v = _heads_in(lerp(2), p["wv"])
+    g = _heads_in(lerp(4), p["wg"])
+    r = rules.constrain(r, "batch", "seq", "heads", None)
+    k = rules.constrain(k, "batch", "seq", "heads", None)
+    v = rules.constrain(v, "batch", "seq", "heads", None)
+
+    # data-dependent decay in log space: logw ≤ 0
+    lora = torch.tanh((lerp(3) @ p["wa"]).float())
+    wln = p["w0"].float() + _heads_in(lora, p["wb"].float())
+    logw = -torch.exp(wln)                                      # (B,S,H,hd)
+    u = p["u"].float()
+
+    state = None
+    if mode == "decode":
+        state0 = cache["state"]
+        r1, k1, v1 = (a[:, 0].float() for a in (r, k, v))
+        kv = k1[..., :, None] * v1[..., None, :]                # (B,H,hd,hd)
+        y = torch.einsum("bhk,bhkd->bhd", r1, state0 + u[..., None] * kv)
+        state = torch.exp(logw[:, 0])[..., None] * state0 + kv
+        y = y[:, None]                                          # (B,1,H,hd)
+    elif mode == "train" and cache is None and x.device.type == "cuda":
+        y = gla_timemix(r.float(), k.float(), v.float(), logw, u,
+                        chunk=chunk_size(S, chunk))
+    else:
+        state0 = (cache["state"] if cache is not None
+                  else torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                                   device=x.device))
+        y, state = _chunked(r, k, v, logw, u, state0, chunk_size(S, chunk))
+
+    # per-head groupnorm-lite + gate
+    ms = torch.clamp((y * y).mean(-1, keepdim=True), min=1e-12)
+    y = y * torch.rsqrt(ms) * p["ln_scale"].float()
+    y = (y * F.silu(g.float())).to(x.dtype)
+    out = y.flatten(-2) @ p["wo"].reshape(H * hd, D)
+    new_cache = None
+    if cache is not None or mode != "train":
+        new_cache = {"shift": x[:, -1].to(x.dtype), "state": state}
+    return out, new_cache
+
+
+def apply_channel_mix(p, x, cfg: ModelConfig, rules: Rules, mode: str,
+                      cache: Optional[Dict]
+                      ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """cache = {"shift": (B, D)}."""
+    B, S, D = x.shape
+    prev = (cache["shift"].to(x.dtype) if cache is not None
+            else torch.zeros((B, D), dtype=x.dtype, device=x.device))
+    xx = _token_shift(x, prev)
+    mix = torch.sigmoid(p["mix_kr"].float())
+
+    def lerp(i):
+        return (x.float() * mix[i] + xx.float() * (1 - mix[i])).to(x.dtype)
+
+    k = lerp(0) @ p["wk"]
+    k = torch.square(F.relu(k))
+    k = rules.constrain(k, "batch", "seq", "mlp_act")
+    vv = k @ p["wv"]
+    rr = torch.sigmoid((lerp(1) @ p["wr"]).float()).to(x.dtype)
+    out = rr * vv
+    new_cache = None
+    if cache is not None or mode != "train":
+        new_cache = {"shift": x[:, -1].to(x.dtype)}
+    return out, new_cache
+
+
+def rwkv_cache_shapes(cfg: ModelConfig, batch: int):
+    H, hd, D = cfg.num_heads, cfg.head_dim_, cfg.d_model
+    return {
+        "tm_shift": ((batch, D), ("batch", None), "bfloat16"),
+        "tm_state": ((batch, H, hd, hd), ("batch", "heads", None, None), "float32"),
+        "cm_shift": ((batch, D), ("batch", None), "bfloat16"),
+    }

@@ -9,6 +9,8 @@ kernels are CUDA C++ with no CPU mode.  The file imports neither jax nor
 (``--noconftest`` because `tests/conftest.py` imports jax).  `chip_smoke.py`
 makes the same comparisons, and more, at the main path's shapes.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -286,6 +288,11 @@ ATTENTION_CASES = [
     (1, 128, 4, 2, 16, True, torch.bfloat16, 2e-2),
     (2, 192, 4, 2, 80, True, torch.float32, 1e-5),
     (2, 192, 4, 2, 80, True, torch.bfloat16, 2e-2),
+    # the server's prompts, shorter than one tile, at B = 4 and qwen2-7b's
+    # width: a tensor map per sequence, bounded at S
+    (4, 4, 28, 4, 128, True, torch.bfloat16, 2e-2),
+    (4, 13, 28, 4, 128, True, torch.bfloat16, 2e-2),
+    (4, 23, 28, 4, 128, True, torch.bfloat16, 2e-2),
 ]
 
 
@@ -298,8 +305,9 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, KV, hd, causal,
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(cuda_device, dt)
                for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
-    got = flash_attention(q, k, v, causal=causal, bq=32, bk=32)
-    want = _flash_attention_plain(q, k, v, causal=causal, bq=32, bk=32)
+    got = flash_attention(q, k, v, causal=causal)
+    blk = math.gcd(S, 32)                 # the plain version's blocks
+    want = _flash_attention_plain(q, k, v, causal=causal, bq=blk, bk=blk)
     torch.cuda.synchronize()
     assert got.dtype == dt
     assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
@@ -570,3 +578,170 @@ def test_pipeline_on_the_card_matches_its_cpu_run(selection, cuda_device):
     for k in ("w", "b"):
         assert torch.allclose(got[1][k].cpu(), want[1][k], rtol=0,
                               atol=1e-6), k
+
+
+def _reduced_model(arch: str):
+    """The port's model at ``arch``'s reduced config, its serving rules, and
+    its parameters (seed 1) in float32 on the CPU."""
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import Rules, build
+    from repro_torch.tree import tree_map
+
+    bundle = configs.get(arch)
+    par = bundle.parallel_for("decode_32k", multi_pod=False)
+    model = build(reduced(bundle.model), par)
+    params = tree_map(lambda a: a.float() if a.is_floating_point() else a,
+                      model.init(1, "cpu"))
+    return model, Rules.make({"data": 1, "model": 1}, par), params
+
+
+def _to(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda a: a.to(device), tree)
+
+
+def _tokens(model, B: int, S: int, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab_size, (B, S)).astype(np.int32))
+
+
+#: the model's float32 outputs on the card against the CPU, relative to the
+#: largest one: kernel 5 or 6 (products in three TF32 passes, about 20
+#: bits) in place of the chunked forms and cuBLAS with TF32 off, at the
+#: init's scale (the stacked (D, heads, hd) projections take the head
+#: count as their fan-in, as the reference draws them, so q and k have an
+#: RMS of about 4 at the reduced width and the scores of about 16, which
+#: the softmax turns into relative errors of 1e-5 and more)
+MODEL_REL = 1e-4
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.cpu().float(), want.cpu().float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["train", "prefill"])
+@pytest.mark.parametrize("S", [16, 13])
+def test_model_attention_on_the_card_matches_the_cpu(mode, S, cuda_device):
+    """`models.attention.attention` of one reduced qwen2-7b layer: kernel 5
+    on the card (one launch), `chunked_attention` on the CPU; prefill's
+    cache write too."""
+    from repro_torch.models.attention import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, rules, params = _reduced_model("qwen2-7b")
+    lp = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    cfg = model.cfg
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(S)[None].expand(2, S)
+    cache = {k: v.float() for k, v in model.init_cache(2, 32, "cpu").items()}
+    want, want_cache = attention(lp, x, cfg, rules, mode, pos, dict(cache),
+                                 layer_idx=0)
+    before = cuda_lib.FLASH_ATTENTION.launches
+    got, got_cache = attention(_to(lp, cuda_device), x.to(cuda_device), cfg,
+                               rules, mode, pos.to(cuda_device),
+                               _to(cache, cuda_device), layer_idx=0)
+    torch.cuda.synchronize()
+    assert cuda_lib.FLASH_ATTENTION.launches - before == 1
+    err = _rel_err(got, want)
+    assert err <= MODEL_REL, err
+    if mode == "prefill":
+        for k in want_cache:
+            assert _rel_err(got_cache[k], want_cache[k]) <= MODEL_REL, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 130])
+def test_model_time_mix_on_the_card_matches_the_cpu(S, cuda_device):
+    """`models.rwkv.apply_time_mix` of one reduced rwkv6-1.6b layer in train
+    mode, its bonus u drawn: kernel 6 on the card (one launch) at the
+    model's chunk, the chunked form on the CPU (one chunk at S = 16, five
+    at S = 130)."""
+    from repro_torch.models.rwkv import apply_time_mix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, rules, params = _reduced_model("rwkv6-1.6b")
+    lp = {k: v[0] for k, v in params["layers"]["tm"].items()}
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, S, model.cfg.d_model)).astype(np.float32))
+    # the bonus u, which the init sets to 0, drawn so that it enters
+    lp["u"] = torch.from_numpy(rng.standard_normal(
+        tuple(lp["u"].shape)).astype(np.float32))
+    want, _ = apply_time_mix(lp, x, model.cfg, rules, "train", None)
+    before = cuda_lib.GLA_TIMEMIX.launches
+    got, state = apply_time_mix(_to(lp, cuda_device), x.to(cuda_device),
+                                model.cfg, rules, "train", None)
+    torch.cuda.synchronize()
+    assert cuda_lib.GLA_TIMEMIX.launches - before == 1 and state is None
+    assert torch.allclose(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kernel", [("qwen2-7b", "FLASH_ATTENTION"),
+                                         ("rwkv6-1.6b", "GLA_TIMEMIX")])
+def test_model_forward_launches_its_kernel_once_a_layer(arch, kernel,
+                                                         cuda_device):
+    """A train forward on the card launches its kernel once per layer and
+    the other model kernel never, and its logits match the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, rules, params = _reduced_model(arch)
+    toks = _tokens(model, 2, 16, 8)
+    want = model.forward(params, {"tokens": toks}, rules, "train")[0]
+    counted = (cuda_lib.FLASH_ATTENTION, cuda_lib.GLA_TIMEMIX)
+    before = [k.launches for k in counted]
+    got = model.forward(_to(params, cuda_device),
+                        {"tokens": toks.to(cuda_device)}, rules, "train")[0]
+    torch.cuda.synchronize()
+    rise = {k.symbol: k.launches - b for k, b in zip(counted, before)}
+    mine = getattr(cuda_lib, kernel).symbol
+    assert rise == {s: (model.cfg.num_layers if s == mine else 0)
+                    for s in rise}
+    assert _rel_err(got, want) <= MODEL_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "llama3-405b", "rwkv6-1.6b"])
+def test_model_prefill_decode_on_the_card(arch, cuda_device):
+    """Prefill S − 1 tokens and decode token S on the card, the cache in
+    float32 (int8 with float32 scales for llama3-405b's serving config): the
+    decode logits match the CPU's run of the same pair and the card's own
+    train forward at the last position.  int8 KV adds ~1/127 of each K/V
+    row's largest element: against the CPU a code may move by one where
+    the card's K/V sit at a rounding tie (`tests/test_models.py`'s float32
+    int8 bar, atol 0.05), against the forward the quantization itself
+    (its bar, atol 0.6, rtol 0.1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, rules, params = _reduced_model(arch)
+    int8 = model.par.kv_cache_dtype == "int8"
+    B, S = 2, 24
+    toks = _tokens(model, B, S, 9)
+
+    def pair(device, params):
+        cache = {k: v.float() if v.is_floating_point() else v
+                 for k, v in model.init_cache(B, S, device).items()}
+        _, cache = model.prefill_fn(params, {"tokens": toks[:, :S - 1].to(
+            device)}, rules, cache)
+        logits, cache = model.decode_fn(
+            params, {"tokens": toks[:, S - 1:].to(device), "pos": S - 1},
+            cache, rules)
+        return logits[:, 0], cache
+
+    with torch.no_grad():
+        want, want_cache = pair("cpu", params)
+        gparams = _to(params, cuda_device)
+        got, got_cache = pair(cuda_device, gparams)
+        full = model.forward(gparams, {"tokens": toks.to(cuda_device)},
+                             rules, "train")[0][:, -1]
+    torch.cuda.synchronize()
+    if int8:
+        assert float((got_cache["k"].cpu().int() - want_cache["k"].int())
+                     .abs().max()) <= 1
+        assert torch.allclose(got.cpu(), want, atol=0.05, rtol=0)
+        assert torch.allclose(got, full, atol=0.6, rtol=0.1)
+    else:
+        assert _rel_err(got, want) <= MODEL_REL
+        assert _rel_err(got, full) <= MODEL_REL
