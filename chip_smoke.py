@@ -194,6 +194,44 @@ failure:
    freed before the next.  The launches of the server's first run and of
    the rwkv train forward are each kernel's ``model_path_launches`` in the
    JSON line.
+15. The train path (`repro_torch.train`, `repro_torch.data`,
+   `repro_torch.checkpoint`), TF32 off.  Reduced smollm-135m and
+   rwkv6-1.6b in float32, the same parameters on the card and on the CPU:
+   ``Model.loss_fn(...).backward()`` must give every leaf a gradient on the
+   card (attention's and the time-mix's projections reach the loss only
+   through kernels 5 and 6), each within `TRAIN_GRAD_REL` of the CPU's
+   relative to its largest entry, with the kernel launched twice a layer
+   (the forward and remat's recompute); one `make_train_step` step at m = 2
+   must give the CPU's loss and ``grad_norm`` within the same bar.  Kernels
+   5 and 6 differentiated at full width (`GRAD_ATTN`, `GRAD_GLA`): the
+   `autograd.Function`'s gradients of every input must equal the chunked
+   forms' autograd on the same inputs and upstream gradient (to 1e-6 of the
+   largest entry: the backward is that computation), the forward within
+   phase 7's and phase 8's tolerances; forward and backward timed (CUDA
+   events).  Then smollm-135m (`src/repro/configs/smollm_135m.py`) at full
+   width and depth, bf16, ``parallel_for("train_4k")``, through `train()`
+   (8 x 128 batches) into ``build/train_ckpt``: 20 steps with checkpoints
+   at 10 and 20, a second call that must resume from step 20, and a third
+   that meets a fault at step 27, restores step 25 and replays; the losses
+   must be finite, the mean of the last 5 of the first call below that of
+   its first 5, and the launches exactly the steps run (replayed ones
+   included) times 2 x 30.  (The synthetic stream is uniform, so all a
+   model can learn is its init's excess over ln V, about 0.007 here, and in
+   20 steps of the warm-up, lr at most 6e-5, it learns almost none of it:
+   the gate holds within the batches' noise, -1.2e-4 at the default seed,
+   and guards against a step that diverges, not for learning; lr 3e-3
+   raises the loss.)  One step at train_4k's sequence, B = 4 x S =
+   4096, is timed (median of 3 after a warm-up) with tokens a second, peak
+   memory, kernel 5's launches and share, and against the products' bound
+   (6 x parameters x tokens plus causal attention's 2 B H S^2 hd a layer
+   x 3, at bf16's rate), and one more under torch.profiler (the device's
+   busy share and kernels, and the kernel's backward's device time).
+   rwkv6-1.6b at full width and depth, bf16, one step at B = 1, S = 4096,
+   the same way (median of 2; kernel 6: 48 launches a step; its profile
+   records the device's kernels alone, as its op events would take
+   minutes to summarise).
+   The launches of the three `train()` calls and of the timed steps (not
+   of the comparisons) are each kernel's ``train_path_launches``.
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -265,6 +303,12 @@ layers the difference is chaotic in the weights (1.0e-2 with u = 0,
 5.6e-4 with u drawn), so
 `RWKV_REL` = 2e-2 there only guards against a path that computes another
 function, which is off by O(1).
+
+Phase 15 holds the card's gradients to the CPU's at `TRAIN_GRAD_REL` = 2e-4
+of each leaf's largest entry: the forwards differ by the kernels' rounding
+(`MODEL_REL`), and the backwards, the chunked forms' autograd on both
+devices, sum in another order, which alone reads up to 5.2e-5 between the
+CPU port and the JAX package (`tests/test_torch_train.py`).
 
 Phase 13 compares products in float32 with TF32 off.  At D = 16 a sum of
 16 products differs by a few units of the last place between orders (the
@@ -447,6 +491,25 @@ PAIR_REL = 1e-4
 RWKV_TM_REL = 1e-4
 RWKV_SHALLOW_REL = 1e-4
 RWKV_REL = 2e-2
+#: phase 15: the train path.  Reduced smollm-135m and rwkv6-1.6b in float32
+#: (B x S tokens, m microbatches in the step) for the gradient checks;
+#: kernels 5 and 6 differentiated at full width, (B, S, H, KV, hd) in bf16
+#: at smollm-135m's and qwen2-7b's widths and the time-mix at rwkv6-1.6b's
+#: in float32; smollm-135m (src/repro/configs/smollm_135m.py) trained at
+#: full width and depth through `train()` (its 8 x 128 geometry) for
+#: TRAIN_STEPS steps, resumed for RESUME_STEPS, then replayed through a
+#: fault at global step REPLAY_FAIL over REPLAY_STEPS; one step timed at
+#: train_4k's sequence, B x S; rwkv6-1.6b one step at B = 1, S = 4096
+TRAIN_ARCH = "smollm-135m"
+TRAIN_SMALL = dict(B=4, S=32, m=2)
+TRAIN_GRAD_REL = 2e-4
+GRAD_ATTN = ((4, 4096, 9, 3, 64), (1, 4096, 28, 4, 128))
+GRAD_GLA = dict(B=1, S=4096, H=32, hd=64)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_LR = 20, 10, 3e-4
+RESUME_STEPS, REPLAY_STEPS, REPLAY_FAIL = 5, 4, 27
+TRAIN_STEP = dict(B=4, S=4096)
+RWKV_STEP = dict(B=1, S=4096)
+TRAIN_REPS, RWKV_STEP_REPS = 3, 2
 #: kernels redesigned for Hopper after their first port
 REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
               "flash_attention", "gla_timemix"}
@@ -1387,11 +1450,13 @@ def model_phase(seed: int, smi_line: str, attn_device_ms: float,
                                      "pos": SERVE["max_seq"] // 2}, cache,
                             rules)
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-    launches = sum(e.count for e in events
-                   if getattr(e, "device_type", None)
-                   == torch.autograd.DeviceType.CUDA)
+    # the device's kernels alone: an op's row carries the device time of
+    # the kernels it launched too, so summing every row counts it twice
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
     busy = (f"{device_us / 3e3:.3f} ms of device time a step "
             f"({device_us / 3e3 / decode_ms:.3f} of it busy; "
             f"{launches / 3:.0f} device kernels a step, torch.profiler)"
@@ -1596,6 +1661,366 @@ def model_phase(seed: int, smi_line: str, attn_device_ms: float,
     del params, model, lp, h, got, want
     torch.cuda.empty_cache()
     say(f"phase 14 kernel launches on the model path: {json.dumps(path)}")
+    return path
+
+def _products_params(model) -> int:
+    """Parameters that enter a product once a token: all of them but an
+    untied embedding table, which is a lookup."""
+    from repro_torch.tree import tree_leaves
+    n = sum(a.numel() for a in tree_leaves(model.abstract_params()))
+    if not model.cfg.tie_embeddings:
+        n -= model.cfg.padded_vocab() * model.cfg.d_model
+    return n
+
+
+def train_phase(seed: int, smi_line: str, dev=None) -> dict:
+    """Phase 15: the train path on the card (see the docstring), ``dev``
+    the card's device.  Returns each kernel's launches on the train path:
+    smollm-135m's three `train()` calls and its timed steps, and
+    rwkv6-1.6b's steps, counted from 0 (not the gradient checks).  Raises
+    on any failed check."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.bench import cuda_ms
+    from repro_torch.configs.base import reduced
+    from repro_torch.device import PEAK_FLOPS_BF16
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import chunked_attention
+    from repro_torch.kernels.gla_timemix.kernel import (gla_timemix,
+                                                        timemix_from_zero)
+    from repro_torch.launch.train import MESH
+    from repro_torch.models import Rules, build
+    from repro_torch.models.common import params_from_numpy
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 15 runs with TF32 off")
+    dev = torch.device("cuda" if dev is None else dev)
+    rng = np.random.default_rng(seed + 15)
+    path = {k.source.stem: 0 for k in cuda_lib.KERNELS}
+
+    def zero():
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+
+    def counted():
+        return {k.source.stem: k.launches for k in cuda_lib.KERNELS}
+
+    def only(launched, kernel, n, what):
+        check(launched[kernel] == n and not any(
+            c for k, c in launched.items() if k != kernel),
+            f"phase 15 {what}: {json.dumps(launched)}, expected {n} "
+            f"launches of {kernel} and none of another kernel")
+
+    def on_path():
+        for k, n in counted().items():
+            path[k] += n
+
+    def rel(got, want) -> float:
+        got, want = got.detach().cpu().float(), want.detach().cpu().float()
+        return float((got - want).abs().max()
+                     / max(float(want.abs().max()), 1e-30))
+
+    def draw(shape, dtype, scale=1.0, grad=True):
+        t = torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev, dtype)
+        return t.requires_grad_(grad)
+
+    def kernel_of(cfg):
+        return "gla_timemix" if cfg.family == "ssm" else "flash_attention"
+
+    # ---- 1. gradients at the reduced configs, float32, card against CPU
+    B, S, m = TRAIN_SMALL["B"], TRAIN_SMALL["S"], TRAIN_SMALL["m"]
+    for arch in (TRAIN_ARCH, RWKV_ARCH):
+        bundle = configs.get(arch)
+        par = bundle.parallel_for("train_4k", multi_pod=False).replace(
+            num_microbatches=m)
+        model = build(reduced(bundle.model), par)
+        rules = Rules.make(MESH, par)
+        L, kernel = model.cfg.num_layers, kernel_of(model.cfg)
+        host = tree_map(lambda a: a.float().numpy(), model.init(seed, "cpu"))
+        toks = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, (B, S)).astype(np.int32))
+
+        def grads(device):
+            p = tree_map(lambda a: a.requires_grad_(a.is_floating_point()),
+                         params_from_numpy(host, device))
+            total, _ = model.loss_fn(p, {"tokens": toks.to(device)}, rules)
+            total.backward()
+            return total, dict(tree_items(p))
+
+        want_total, want = grads("cpu")
+        zero()
+        got_total, got = grads(dev)
+        torch.cuda.synchronize()
+        only(counted(), kernel, 2 * L, f"{arch} reduced loss_fn backward")
+        missing = [k for k, p in got.items() if p.grad is None]
+        check(not missing, f"phase 15 {arch}: no gradient on the card for "
+              f"{missing}")
+        errs = {k: rel(got[k].grad, want[k].grad) for k in want}
+        worst = max(errs, key=errs.get)
+        loss_err = rel(got_total, want_total)
+        check(errs[worst] <= TRAIN_GRAD_REL and loss_err <= TRAIN_GRAD_REL,
+              f"phase 15 {arch}: gradients against the CPU's {errs}, loss "
+              f"{loss_err} (bar {TRAIN_GRAD_REL})")
+        step = make_train_step(model, rules, lr=1e-3).step_fn
+
+        def one_step(device):
+            p = params_from_numpy(host, device)
+            return step({"params": p, "opt": adamw_init(p)},
+                        {"tokens": toks.to(device)})[1]
+
+        want_m = one_step("cpu")
+        zero()
+        got_m = one_step(dev)
+        torch.cuda.synchronize()
+        only(counted(), kernel, 2 * L * m, f"{arch} reduced train step")
+        step_errs = {k: rel(got_m[k], want_m[k])
+                     for k in ("loss", "grad_norm")}
+        check(max(step_errs.values()) <= TRAIN_GRAD_REL,
+              f"phase 15 {arch}: train step against the CPU's {step_errs}")
+        say(f"phase 15 {arch} reduced, float32, B = {B}, S = {S}: "
+            f"loss_fn backward on the card, {len(got)} leaves each with a "
+            f"gradient, {kernel} launched {2 * L} times ({L} layers, "
+            f"forward and remat's recompute); of each leaf's largest entry "
+            f"against the CPU's, worst {errs[worst]:.3g} ({worst}), loss "
+            f"{loss_err:.3g}; one train step at m = {m}: loss "
+            f"{step_errs['loss']:.3g}, grad_norm "
+            f"{step_errs['grad_norm']:.3g} (bar {TRAIN_GRAD_REL})")
+        del got, want
+
+    # ---- 2. kernels 5 and 6 differentiated at full width
+    fwd_ms = {}
+    for (B, S, H, KV, hd) in GRAD_ATTN:
+        q = draw((B, S, H, hd), torch.bfloat16)
+        k, v = (draw((B, S, KV, hd), torch.bfloat16) for _ in range(2))
+        g = draw((B, S, H, hd), torch.bfloat16, grad=False)
+        out = flash_attention(q, k, v, causal=True)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        ref = chunked_attention(q, k, v, causal=True)
+        want = torch.autograd.grad(ref, (q, k, v), g)
+        f_err = attention_err(out.detach(), ref.detach(),
+                              ATTN_TOL[str(ref.dtype)])
+        g_errs = [rel(a, b) for a, b in zip(got, want)]
+        check(f_err <= 1.0 and max(g_errs) <= 1e-6,
+              f"phase 15 kernel 5 at B={B} S={S} H={H} KV={KV} hd={hd}: "
+              f"forward {f_err} of phase 7's tolerance, gradients {g_errs}")
+        del out, ref, got, want
+        with torch.no_grad():
+            fwd_ms[(B, S, H, KV, hd)] = cuda_ms(lambda: flash_attention(
+                q, k, v, causal=True), TRAIN_REPS)
+        out = flash_attention(q, k, v, causal=True)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), g, retain_graph=True), TRAIN_REPS)
+        say(f"phase 15 kernel 5 differentiated, B = {B}, S = {S}, H = {H}, "
+            f"KV = {KV}, hd = {hd}, bf16, causal: forward (the kernel) "
+            f"{fwd_ms[(B, S, H, KV, hd)]:.4f} ms, backward (chunked_attention"
+            f" recomputed and differentiated) {bwd_ms:.3f} ms (CUDA events, "
+            f"median of {TRAIN_REPS}); forward {f_err:.3g} of phase 7's "
+            f"tolerance, gradients of q, k, v against chunked_attention's "
+            f"autograd " + ", ".join(f"{e:.3g}" for e in g_errs)
+            + f"; {smi_line}")
+        del q, k, v, g, out
+        torch.cuda.empty_cache()
+    B, S, H, hd = (GRAD_GLA[k] for k in ("B", "S", "H", "hd"))
+    r, k, v = (draw((B, S, H, hd), torch.float32, hd ** -0.5)
+               for _ in range(3))
+    logw = (-torch.exp(draw((B, S, H, hd), torch.float32, grad=False))
+            ).requires_grad_()
+    u = draw((H, hd), torch.float32)
+    ins = (r, k, v, logw, u)
+    g = draw((B, S, H, hd), torch.float32, grad=False)
+    out = gla_timemix(*ins, chunk=GLA_CHUNK)
+    got = torch.autograd.grad(out, ins, g)
+    ref = timemix_from_zero(*ins, GLA_CHUNK)
+    want = torch.autograd.grad(ref, ins, g)
+    g_errs = [rel(a, b) for a, b in zip(got, want)]
+    check(torch.allclose(out, ref, **GLA_TOL) and max(g_errs) <= 1e-6,
+          f"phase 15 kernel 6 at {GRAD_GLA}: forward off the chunked form "
+          f"by {float((out - ref).detach().abs().max())}, gradients "
+          f"{g_errs}")
+    del got, want, ref
+    with torch.no_grad():
+        gla_ms = cuda_ms(lambda: gla_timemix(*ins, chunk=GLA_CHUNK),
+                         TRAIN_REPS)
+    out = gla_timemix(*ins, chunk=GLA_CHUNK)
+    gla_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, ins, g, retain_graph=True), TRAIN_REPS)
+    say(f"phase 15 kernel 6 differentiated, B = {B}, S = {S}, H = {H}, hd = "
+        f"{hd}, chunk {GLA_CHUNK}, float32: forward (the kernel) "
+        f"{gla_ms:.4f} ms, backward (the chunked form recomputed from a "
+        f"zero state and differentiated) {gla_bwd_ms:.3f} ms (median of "
+        f"{TRAIN_REPS}); gradients of r, k, v, logw, u against the chunked "
+        f"form's autograd " + ", ".join(f"{e:.3g}" for e in g_errs)
+        + f"; {smi_line}")
+    del r, k, v, logw, u, ins, g, out
+    torch.cuda.empty_cache()
+
+    # ---- 3. smollm-135m trained at full width and depth, bf16
+    bundle = configs.get(TRAIN_ARCH)
+    cfg = bundle.model
+    par = bundle.parallel_for("train_4k", multi_pod=False)
+    model = build(cfg, par)
+    rules = Rules.make(MESH, par)
+    L = cfg.num_layers
+    per_step = 2 * L * par.num_microbatches
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(ckpt_dir=str(ckpt), seed=seed, ckpt_every=TRAIN_CKPT_EVERY,
+              lr=TRAIN_LR, device=dev)
+    runs = []
+    for steps, fail_at in ((TRAIN_STEPS, None), (RESUME_STEPS, None),
+                           (REPLAY_STEPS, REPLAY_FAIL)):
+        zero()
+        t0 = time.perf_counter()
+        rep = train(model, rules, steps=steps, fail_at=fail_at, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = counted()
+        on_path()
+        check(rep.steps_run == steps and len(rep.losses) == steps
+              and all(math.isfinite(x) for x in rep.losses),
+              f"phase 15 {TRAIN_ARCH} train(steps={steps}): {rep}")
+        runs.append((rep, secs, launched))
+    (first, s1, l1), (second, s2, l2), (third, s3, l3) = runs
+    start3 = TRAIN_STEPS + RESUME_STEPS
+    only(l1, "flash_attention", per_step * TRAIN_STEPS, "first train()")
+    only(l2, "flash_attention", per_step * RESUME_STEPS, "resumed train()")
+    # the replay: the steps before the fault, then all REPLAY_STEPS again
+    only(l3, "flash_attention",
+         per_step * (REPLAY_STEPS + REPLAY_FAIL - start3), "replayed train()")
+    head = statistics.mean(first.losses[:5])
+    tail = statistics.mean(first.losses[-5:])
+    steps_kept = sorted(int(p.name.split("_")[1]) for p in ckpt.glob("step_*"))
+    check(first.restored_from is None and second.restored_from == TRAIN_STEPS
+          and third.restored_from == start3 and tail < head
+          and steps_kept == [TRAIN_STEPS, start3, start3 + REPLAY_STEPS],
+          f"phase 15 {TRAIN_ARCH}: restored from {first.restored_from}, "
+          f"{second.restored_from}, {third.restored_from}; loss of the first "
+          f"5 steps {head}, of the last 5 {tail}; checkpoints {steps_kept}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    n_params = sum(a.numel() for a in tree_leaves(model.abstract_params()))
+    say(f"phase 15 {TRAIN_ARCH}: {L} layers, d_model {cfg.d_model}, "
+        f"{n_params:.4g} parameters in bf16, parallel_for('train_4k') (m = "
+        f"{par.num_microbatches}, remat {par.remat}, moments "
+        f"{par.optimizer_state_dtype}), train()'s 8 x 128 batches, lr "
+        f"{TRAIN_LR}: {TRAIN_STEPS} steps in {s1:.2f} s host clock (init and "
+        f"checkpoints at {TRAIN_CKPT_EVERY} and {TRAIN_STEPS} included), "
+        f"loss {first.losses[0]:.4f} -> {first.losses[-1]:.4f} (mean of the "
+        f"first 5 {head:.4f}, of the last 5 {tail:.4f}); resumed from step "
+        f"{second.restored_from} for {RESUME_STEPS} steps in {s2:.2f} s; "
+        f"a fault at step {REPLAY_FAIL} restored step {start3} and replayed, "
+        f"{REPLAY_STEPS} steps in {s3:.2f} s, final loss "
+        f"{third.final_loss:.4f}; kernel 5 launched {per_step} times a step")
+
+    def timed_steps(model, rules, Bt, St, reps, ops=True):
+        """``reps`` steps after a warm-up at Bt x St: (median ms, peak bytes,
+        launches a step, the last step's metrics, a profiled step's
+        summary).  ``ops``: the profile records the host's ops too, which
+        attributes device time to the kernel's backward; without them it
+        records the device's kernels alone (rwkv6-1.6b's step queues some
+        160,000, and its op events cost minutes to summarise)."""
+        box = {"state": init_train_state(model, seed, dev)}
+        step_fn = make_train_step(model, rules, lr=TRAIN_LR).step_fn
+        toks = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, (Bt, St)).astype(np.int32)).to(dev)
+
+        def one():
+            box["state"], box["metrics"] = step_fn(box["state"],
+                                                   {"tokens": toks})
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        ms = cuda_ms(one, reps)
+        launched = counted()
+        on_path()
+        peak = torch.cuda.max_memory_allocated()
+        kernel = kernel_of(model.cfg)
+        only(launched, kernel, (reps + 1) * 2 * model.cfg.num_layers
+             * model.par.num_microbatches, f"{model.cfg.name} timed steps")
+        met = box["metrics"]
+        check(math.isfinite(float(met["loss"]))
+              and math.isfinite(float(met["grad_norm"])),
+              f"phase 15 {model.cfg.name}: step metrics {met}")
+        # one more step under torch.profiler: the device's busy share, its
+        # kernels a step and, with ``ops``, the kernel's backward (the
+        # chunked form's recompute and autograd) in device time
+        activities = [torch.profiler.ProfilerActivity.CUDA]
+        if ops:
+            activities.append(torch.profiler.ProfilerActivity.CPU)
+        with torch.profiler.profile(activities=activities) as prof:
+            one()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events if getattr(e, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in device) / 1e3
+        backward_ms = sum(e.device_time_total for e in events if e.key in (
+            "_FlashAttentionBackward", "_GlaTimemixBackward")) / 1e3
+        backward = (f", the kernel's backward {backward_ms:.1f} ms of it "
+                    f"({backward_ms / max(device_ms, 1e-9):.3f})" if ops
+                    else ", the kernel's backward's share not measured")
+        trace = (f"device {device_ms:.1f} ms a step (busy {device_ms / ms:.3f}"
+                 f", {sum(e.count for e in device)} device kernels"
+                 f"{backward}; torch.profiler)"
+                 if device_ms else "device time not measured (the profiler "
+                 "recorded none)")
+        del box
+        torch.cuda.empty_cache()
+        return ms, peak, launched[kernel] // (reps + 1), met, trace
+
+    Bt, St = TRAIN_STEP["B"], TRAIN_STEP["S"]
+    ms, peak, launches, met, trace = timed_steps(model, rules, Bt, St,
+                                                 TRAIN_REPS)
+    H, hd = cfg.num_heads, cfg.head_dim_
+    flops = (6 * _products_params(model) * Bt * St
+             + 2 * Bt * H * St * St * hd * L * 3)
+    bound_ms = flops / PEAK_FLOPS_BF16 * 1e3
+    k5 = fwd_ms[(Bt, St, H, cfg.num_kv_heads, hd)]
+    say(f"phase 15 {TRAIN_ARCH} train step, B = {Bt}, S = {St}, bf16: "
+        f"{ms:.2f} ms (CUDA events, median of {TRAIN_REPS} after a warm-up),"
+        f" {Bt * St / ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, loss {float(met['loss']):.4f}; kernel 5 "
+        f"{launches} launches a step x {k5:.4f} ms = "
+        f"{launches * k5 / ms:.4f} of the step; {trace}; the products' "
+        f"bound {flops:.4g} FLOP at bf16's {PEAK_FLOPS_BF16:.4g} FLOP/s = "
+        f"{bound_ms:.3f} ms, the step {ms / bound_ms:.1f}x it; {smi_line}")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 4. rwkv6-1.6b at full width and depth, bf16: one step
+    bundle = configs.get(RWKV_ARCH)
+    cfg = bundle.model
+    par = bundle.parallel_for("train_4k", multi_pod=False)
+    model = build(cfg, par)
+    rules = Rules.make(MESH, par)
+    Bt, St = RWKV_STEP["B"], RWKV_STEP["S"]
+    ms, peak, launches, met, trace = timed_steps(model, rules, Bt, St,
+                                                 RWKV_STEP_REPS, ops=False)
+    n_prod = _products_params(model)
+    flops = 6 * n_prod * Bt * St
+    bound_ms = flops / PEAK_FLOPS_BF16 * 1e3
+    say(f"phase 15 {RWKV_ARCH} train step, {cfg.num_layers} layers, "
+        f"B = {Bt}, S = {St}, bf16 parameters, moments "
+        f"{par.optimizer_state_dtype}: {ms:.2f} ms (median of "
+        f"{RWKV_STEP_REPS} after a warm-up), {Bt * St / ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, loss {float(met['loss']):.4f}; kernel 6 "
+        f"{launches} launches a step; {trace}; the products' bound 6 x "
+        f"{n_prod:.4g} parameters (less the embedding lookup) x {Bt * St} "
+        f"tokens = {flops:.4g} FLOP at bf16's rate = {bound_ms:.3f} ms, the step "
+        f"{ms / bound_ms:.1f}x it; {smi_line}")
+    del model
+    torch.cuda.empty_cache()
+    say(f"phase 15 kernel launches on the train path: {json.dumps(path)}")
     return path
 
 
@@ -2448,6 +2873,13 @@ def main() -> int:
     for row in rows:
         row["model_path_launches"] = model_launches[row["name"].split("[")[0]]
     say(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------- phase 15 --
+    t0 = time.perf_counter()
+    train_launches = train_phase(args.seed, smi_line)
+    for row in rows:
+        row["train_path_launches"] = train_launches[row["name"].split("[")[0]]
+    say(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     say(smi_line)

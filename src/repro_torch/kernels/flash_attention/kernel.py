@@ -7,7 +7,13 @@ kv blocks wholly above the diagonal are skipped; scores above it are
 masked to ``NEG``; the output is ``acc / max(l, 1e-30)`` in q's dtype.
 
 `flash_attention` runs ``csrc/flash_attention.cu`` on a CUDA tensor and
-`_flash_attention_plain` on a CPU one.  The plain version walks the
+`_flash_attention_plain` on a CPU one.  Where a gradient is wanted (grad
+mode on and q, k or v requiring one) the call goes through
+`_FlashAttention`, a `torch.autograd.Function`: its forward is the same
+kernel (or plain version), its backward recomputes `ref.chunked_attention`
+(the reference's train-mode attention, which `jax.grad` differentiates;
+the Pallas kernel has no VJP of its own) on the saved q, k and v and
+returns that function's gradients.  The plain version walks the
 reference kernel's grid in ``bq × bk`` blocks and keeps the probabilities
 in float32, as the Pallas kernel does.  The CUDA kernel rounds them to
 bf16 or f16 for its tensor-core product on those inputs, as
@@ -21,7 +27,7 @@ import ctypes
 import torch
 
 from .. import cuda_lib
-from .ref import NEG, _scaled
+from .ref import NEG, _scaled, chunked_attention
 
 #: dtype → the kernel's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -105,20 +111,8 @@ def _flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
     return out.to(q.dtype).transpose(1, 2)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
-                    bk: int = 128, scale=None) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd) in q's dtype.
-    Kernel 5, ``csrc/flash_attention.cu``, on CUDA tensors (float32, bf16
-    or f16, hd up to 128, run at 32, 64 or 128 with zero channels; its own
-    q and kv tiles are 128 rows and take any S, so ``bq`` and ``bk`` do
-    not reach it); `_flash_attention_plain` on CPU ones, which requires
-    ``S % bq == S % bk == 0``."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return _flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk,
-                                      scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+def _flash_attention_cuda(q, k, v, causal: bool, scale) -> torch.Tensor:
+    """One launch of kernel 5 on CUDA tensors (see `flash_attention`)."""
     B, S, H, hd = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: the kernel takes one of "
@@ -140,3 +134,58 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
             H, k.shape[2], width, int(causal), scale, _DTYPES[q.dtype],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     return out if width == hd else out[..., :hd].contiguous()
+
+
+def _forward(q, k, v, causal: bool, bq: int, bk: int, scale):
+    if q.device.type == "cpu":
+        return _flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _flash_attention_cuda(q, k, v, causal, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 5 (its plain version on the CPU) forward; the backward of
+    `chunked_attention` on the saved q, k and v.  The backward runs the
+    chunked form's forward again in PyTorch, so a remat'd layer computes
+    attention three times: the step's forward, the recompute, and this."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bq, bk):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal, bq, bk, None)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_(n) for a, n in zip((q, k, v),
+                                                               need)]
+            out = chunked_attention(*ins, causal=ctx.causal)
+            got = iter(torch.autograd.grad(
+                out, [a for a in ins if a.requires_grad], grad))
+        return (*(next(got) if n else None for n in need), None, None,
+                None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
+                    bk: int = 128, scale=None) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd) in q's dtype.
+    Kernel 5, ``csrc/flash_attention.cu``, on CUDA tensors (float32, bf16
+    or f16, hd up to 128, run at 32, 64 or 128 with zero channels; its own
+    q and kv tiles are 128 rows and take any S, so ``bq`` and ``bk`` do
+    not reach it); `_flash_attention_plain` on CPU ones, which requires
+    ``S % bq == S % bk == 0``.  With grad mode on and an input requiring a
+    gradient, the call is differentiable (`_FlashAttention`) at the
+    default scale hd^-½ (ValueError at another)."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+        if scale is not None:
+            raise ValueError("flash_attention: the gradient is that of "
+                             "chunked_attention, which scales by hd^-1/2; "
+                             "pass scale=None")
+        return _FlashAttention.apply(q, k, v, causal, bq, bk)
+    return _forward(q, k, v, causal, bq, bk, scale)

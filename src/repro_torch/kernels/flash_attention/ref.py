@@ -21,8 +21,10 @@ NEG = -1e30
 
 def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
     """``q * scale`` with the scale rounded to q's dtype first, as JAX
-    multiplies an array by a weakly typed Python float."""
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    multiplies an array by a weakly typed Python float.  The scale is a 0-d
+    CPU tensor, which a CUDA kernel takes as an argument: a tensor on the
+    card would be a copy to it, and PyTorch waits for such a copy."""
+    return q * torch.tensor(scale, dtype=q.dtype)
 
 
 def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,

@@ -22,7 +22,13 @@ one), as exp(cl_prev[t] − cl[m]) · exp(cl[m] − cl[s]), two exponents ≤ 0,
 and the block is a product.
 
 `gla_timemix` runs ``csrc/gla_timemix.cu`` on a CUDA tensor and
-`_gla_timemix_plain` on a CPU one.
+`_gla_timemix_plain` on a CPU one.  Where a gradient is wanted (grad mode
+on and an input requiring one) the call goes through `_GlaTimemix`, a
+`torch.autograd.Function`: its forward is the same kernel (or plain
+version), its backward recomputes `ref.chunked_timemix` from a zero state
+at the same chunk (the reference model's chunked scan, which `jax.grad`
+differentiates; the Pallas kernel has no VJP of its own) and returns that
+function's gradients for r, k, v, logw and u.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import cuda_lib
+from .ref import chunked_timemix
 
 #: dtype → the kernel's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -145,17 +152,8 @@ def _gla_timemix_plain(r, k, v, logw, u, *, chunk: int = 64
     return out.to(r.dtype).transpose(1, 2)
 
 
-def gla_timemix(r, k, v, logw, u, *, chunk: int = 64) -> torch.Tensor:
-    """r/k/v/logw: (B, S, H, hd); u: (H, hd) → (B, S, H, hd) in r's dtype.
-    Requires ``S % chunk == 0`` (ValueError otherwise).  Kernel 6,
-    ``csrc/gla_timemix.cu``, on CUDA tensors (float32 or bf16, hd up to
-    128; RuntimeError where a phase's tiles pass a CTA's shared memory);
-    `_gla_timemix_plain` on CPU ones."""
-    _check(r, k, v, logw, u, chunk)
-    if r.device.type == "cpu":
-        return _gla_timemix_plain(r, k, v, logw, u, chunk=chunk)
-    if r.device.type != "cuda":
-        raise ValueError(f"gla_timemix: no kernel for device {r.device}")
+def _gla_timemix_cuda(r, k, v, logw, u, chunk: int) -> torch.Tensor:
+    """One call of kernel 6 (its three phases) on CUDA tensors."""
     args = (r, k, v, logw, u)
     if r.dtype not in _DTYPES or any(a.dtype != r.dtype for a in args):
         raise ValueError(f"gla_timemix: the kernel takes one dtype of "
@@ -177,3 +175,61 @@ def gla_timemix(r, k, v, logw, u, *, chunk: int = 64) -> torch.Tensor:
             u.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, H, width,
             chunk, _DTYPES[r.dtype], 7, cuda_lib.raw_stream(r.device))
     return out if width == hd else out[..., :hd].contiguous()
+
+
+def _forward(r, k, v, logw, u, chunk: int) -> torch.Tensor:
+    if r.device.type == "cpu":
+        return _gla_timemix_plain(r, k, v, logw, u, chunk=chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"gla_timemix: no kernel for device {r.device}")
+    return _gla_timemix_cuda(r, k, v, logw, u, chunk)
+
+
+def timemix_from_zero(r, k, v, logw, u, chunk: int) -> torch.Tensor:
+    """The function kernel 6 computes, as the reference model's chunked
+    scan computes it: `ref.chunked_timemix` from a zero state, in r's
+    dtype.  Differentiable by PyTorch's autograd."""
+    B, S, H, hd = r.shape
+    state0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device)
+    y, _ = chunked_timemix(r, k, v, logw.float(), u.float(), state0, chunk)
+    return y.to(r.dtype)
+
+
+class _GlaTimemix(torch.autograd.Function):
+    """Kernel 6 (its plain version on the CPU) forward; the backward of
+    `timemix_from_zero` on the saved inputs.  The backward runs the
+    chunked form's forward again in PyTorch, so a remat'd layer computes
+    the time-mix three times: the step's forward, the recompute, and
+    this."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, logw, u)
+        return _forward(r, k, v, logw, u, chunk)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_(n) for a, n in zip(saved, need)]
+            out = timemix_from_zero(*ins, ctx.chunk)
+            got = iter(torch.autograd.grad(
+                out, [a for a in ins if a.requires_grad], grad))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def gla_timemix(r, k, v, logw, u, *, chunk: int = 64) -> torch.Tensor:
+    """r/k/v/logw: (B, S, H, hd); u: (H, hd) → (B, S, H, hd) in r's dtype.
+    Requires ``S % chunk == 0`` (ValueError otherwise).  Kernel 6,
+    ``csrc/gla_timemix.cu``, on CUDA tensors (float32 or bf16, hd up to
+    128; RuntimeError where a phase's tiles pass a CTA's shared memory);
+    `_gla_timemix_plain` on CPU ones.  With grad mode on and an input
+    requiring a gradient, the call is differentiable (`_GlaTimemix`)."""
+    _check(r, k, v, logw, u, chunk)
+    args = (r, k, v, logw, u)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _GlaTimemix.apply(*args, chunk)
+    return _forward(*args, chunk)

@@ -8,7 +8,9 @@ swaps in on the accelerator.  Here train and prefill do the same by device
 flash_attention`, ``csrc/flash_attention.cu``) on a CUDA tensor and
 `chunked_attention` (the reference's function, in
 `kernels.flash_attention.ref`) on a CPU one.  Both compute causal softmax
-attention at scale hd^-½ with query head h reading kv head h % KV.
+attention at scale hd^-½ with query head h reading kv head h % KV, and
+under autograd the kernel's gradient is `chunked_attention`'s (the
+wrapper's `autograd.Function`).
 Decode stays `decode_attention`, in PyTorch, as the reference computes it in
 XLA: its ``kv_len`` mask and int8 scales are no part of kernel 5.  Cross
 attention (Sq ≠ Skv) runs `chunked_attention` on every device.

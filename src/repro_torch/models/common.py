@@ -16,6 +16,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from ..tree import tree_map_with_path
 from .sharding import Rules
 
 
@@ -105,12 +106,7 @@ def init_params(seed: int, plan, device=None):
         _normal(gen, p.shape, p.scale / float(np.sqrt(max(fan_in, 1))), leaf)
         return leaf
 
-    def walk(node, path: str):
-        if is_pspec(node):
-            return one(path, node)
-        return {k: walk(v, f"{path}[{k!r}]") for k, v in node.items()}
-
-    return walk(plan, "")
+    return tree_map_with_path(one, plan)
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:

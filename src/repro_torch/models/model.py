@@ -12,10 +12,13 @@ The port of `repro.models.model` for those two families:
 slices of the port (ROADMAP.md, queue 1, item 2).
 
 Parameters are stacked over layers, as in the reference, and a Python loop
-over the layer index takes the place of its ``jax.lax.scan``.  The
-reference's scan also rematerializes train-mode layers (``remat``,
-``remat_block``); that acts only on gradients, so it waits for the training
-slice, and the loop here keeps every activation autograd needs.
+over the layer index takes the place of its ``jax.lax.scan``.  As the
+reference's scan does, a train-mode forward that autograd records
+rematerializes its layers under ``par.remat == "full"``: each layer runs
+under `torch.utils.checkpoint.checkpoint` (non-reentrant), so only its
+input is kept and its activations are recomputed in the backward; with
+``remat_block`` dividing L and less than it, blocks of that many layers
+are checkpointed too (the reference's two-level remat).
 
 The KV / state cache is a dict of FULL stacked tensors, written in place
 (`attention.cache_write_token`, `cache_write_layer` and `_write1` here), as
@@ -29,6 +32,7 @@ from dataclasses import dataclass
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, ParallelConfig
 from ..tree import tree_leaves, tree_map
@@ -160,16 +164,50 @@ class Model:
         return logits, cache
 
     # ------------------------------------------------------- layer loop
-    def _scan_layers(self, body, x, cache, stacked_params):
+    def _scan_layers(self, body, x, cache, stacked_params, mode: str):
         """Run ``body(lp, i, x, cache) -> (x, aux, cache)`` over the
         stacked layers, the reference's ``lax.scan`` with the cache in the
-        carry."""
+        carry.  Train mode under autograd: remat (two-level where
+        ``remat_block`` divides L).  A train forward with a cache (which
+        the layers write in place) is not rematerialized: its recompute
+        would read the cache after the first forward wrote it."""
+        par = self.par
         L = tree_leaves(stacked_params)[0].shape[0]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(L):
+
+        def step(i, x):
             lp = tree_map(lambda a: a[i], stacked_params)
-            x, a, cache = body(lp, i, x, cache)
-            aux = aux + a
+            x, a, _ = body(lp, i, x, None)
+            return x, a
+
+        use_remat = (par.remat == "full" and mode == "train"
+                     and cache is None and torch.is_grad_enabled())
+        if not use_remat:
+            for i in range(L):
+                lp = tree_map(lambda a: a[i], stacked_params)
+                x, a, cache = body(lp, i, x, cache)
+                aux = aux + a
+            return x, aux, cache
+
+        def layer(i, x):
+            return checkpoint(step, i, x, use_reentrant=False)
+
+        nb = par.remat_block
+        if nb and L % nb == 0 and nb < L:
+            def block(i0, x):
+                a_blk = torch.zeros_like(aux)
+                for i in range(i0, i0 + nb):
+                    x, a = layer(i, x)
+                    a_blk = a_blk + a
+                return x, a_blk
+
+            for i0 in range(0, L, nb):
+                x, a = checkpoint(block, i0, x, use_reentrant=False)
+                aux = aux + a
+        else:
+            for i in range(L):
+                x, a = layer(i, x)
+                aux = aux + a
         return x, aux, cache
 
     # ----------------------------------------------------- family stacks
@@ -190,7 +228,8 @@ class Model:
             x = rules.constrain(x, "batch", "seq", "embed_act")
             return x, zero, cache
 
-        x, aux, cache = self._scan_layers(body, x, cache, params["layers"])
+        x, aux, cache = self._scan_layers(body, x, cache, params["layers"],
+                                          mode)
         return x, cache, aux
 
     def _rwkv_stack(self, params, x, positions, rules, mode, cache, kv_len):
@@ -221,7 +260,8 @@ class Model:
                                             cm_new["shift"])
             return x, zero, cache
 
-        x, aux, cache = self._scan_layers(body, x, cache, params["layers"])
+        x, aux, cache = self._scan_layers(body, x, cache, params["layers"],
+                                          mode)
         return x, cache, aux
 
 

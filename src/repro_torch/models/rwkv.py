@@ -12,9 +12,10 @@ Where the chunked form starts from a zero state and keeps none (mode
 ``"train"`` without a cache), the time-mix core on a CUDA tensor is kernel 6
 (`kernels.gla_timemix.kernel.gla_timemix`, ``csrc/gla_timemix.cu``), given
 r, k, v, logw and u in float32 and this module's chunk; it computes the same
-recurrence.  Kernel 6 takes no initial state and returns no final state, so
-prefill with a cache and decode run the chunked form and the one-step
-recurrence in PyTorch on every device.
+recurrence, and under autograd its gradient is the chunked form's (the
+wrapper's `autograd.Function`).  Kernel 6 takes no initial state and returns
+no final state, so prefill with a cache and decode run the chunked form and
+the one-step recurrence in PyTorch on every device.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.gla_timemix.kernel import gla_timemix
+from ..kernels.gla_timemix.ref import chunked_timemix as _chunked
 from .attention import _heads_in
 from .common import PSpec
 from .sharding import Rules
@@ -73,45 +75,6 @@ def chunk_size(S: int, chunk: int = 64) -> int:
     while S % nc:
         nc += 1
     return S // nc
-
-
-def _chunked(r, k, v, logw, u, state0, C: int):
-    """The reference's chunkwise-parallel form: (y (B,S,H,hd), final state)
-    from r, k, v (any dtype), logw and u in float32 and a float32 state."""
-    B, S, H, hd = r.shape
-    nc = S // C
-    rc = r.reshape(B, nc, C, H, hd).float()
-    kc = k.reshape(B, nc, C, H, hd).float()
-    vc = v.reshape(B, nc, C, H, hd).float()
-    lw = logw.reshape(B, nc, C, H, hd)
-    cl = torch.cumsum(lw, dim=2)                                # inclusive
-    cl_prev = cl - lw                                           # exclusive
-    tot = cl[:, :, -1]                                          # (B,nc,H,hd)
-    tri = torch.tril(torch.ones((C, C), dtype=torch.float32,
-                                device=r.device), -1)
-    below = (tri > 0)[None, :, :, None, None]
-    state = state0
-    ys = []
-    for c in range(nc):
-        rc_, kc_, vc_ = rc[:, c], kc[:, c], vc[:, c]            # (B,C,H,hd)
-        cl_, clp_, tot_ = cl[:, c], cl_prev[:, c], tot[:, c]
-        # inter-chunk: r_t · (decay(≤t-1 from chunk start) * S_prev)
-        rdec = rc_ * torch.exp(clp_)
-        y_inter = torch.einsum("bthk,bhkd->bthd", rdec, state)
-        # intra-chunk decay via pairwise differences (exponent ≤ 0 where
-        # unmasked)
-        diff = clp_[:, :, None] - cl_[:, None]                   # (B,C,C,H,hd)
-        dec = torch.where(below, diff, -torch.inf)
-        att = torch.einsum("bthk,bshk,btshk->bhts", rc_, kc_, torch.exp(dec))
-        y_intra = torch.einsum("bhts,bshd->bthd", att, vc_)
-        # current token bonus
-        y_diag = torch.einsum("bthk,bthk->bth", rc_ * u, kc_)[..., None] * vc_
-        # state update: S ← exp(tot)·S + Σ_s exp(tot - cl_s) k_s v_sᵀ
-        kdec = kc_ * torch.exp(tot_[:, None] - cl_)
-        state = torch.exp(tot_)[..., None] * state + torch.einsum(
-            "bshk,bshd->bhkd", kdec, vc_)
-        ys.append(y_inter + y_intra + y_diag)
-    return torch.stack(ys, dim=1).reshape(B, S, H, hd), state
 
 
 def apply_time_mix(p, x, cfg: ModelConfig, rules: Rules, mode: str,

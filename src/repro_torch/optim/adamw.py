@@ -16,10 +16,15 @@ from .quantized import dequantize_array, quantize_array
 def global_norm(tree) -> torch.Tensor:
     def sumsq(x):
         if x.ndim >= 2 and x.shape[0] > 1 and x.numel() >= (1 << 24):
-            # slice-wise: avoids materializing a full f32 convert of
-            # stacked-layer gradients just to reduce it
-            return torch.stack([torch.sum(torch.square(s.to(torch.float32)))
-                                for s in x]).sum()
+            # slice-wise, as the reference's lax.map: the sum of each slice
+            # of the leading dimension, then of those; the slices taken in
+            # groups of up to 2**24 elements, so no full f32 convert of a
+            # large gradient is made and a long leading dimension (an
+            # embedding's vocabulary) costs a few launches, not two a slice
+            per = max(1, (1 << 24) // (x.numel() // x.shape[0]))
+            dims = tuple(range(1, x.ndim))
+            return torch.cat([torch.square(c.to(torch.float32)).sum(dims)
+                              for c in x.split(per)]).sum()
         return torch.sum(torch.square(x.to(torch.float32)))
     return torch.sqrt(sum(sumsq(x) for x in tree_leaves(tree)))
 
@@ -45,7 +50,7 @@ def adamw_update(params, grads, opt, lr, *, b1=0.9, b2=0.95, eps=1e-8,
     step = opt["step"] + 1
     gnorm = global_norm(grads)
     # a tensor numerator: a Python one divides as reciprocal × scalar
-    scale = torch.clamp(gnorm.new_tensor(clip_norm)
+    scale = torch.clamp(torch.full_like(gnorm, clip_norm)
                         / torch.clamp(gnorm, min=1e-9), max=1.0)
     step_f = step.to(torch.float32)
 

@@ -37,7 +37,8 @@ def quantize_array(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     # a tensor on x's device, not a Python scalar: CUDA PyTorch divides by a
     # Python scalar by multiplying with its rounded reciprocal, which would
     # move some scales by a unit in the last place from the CPU's
-    scale = blocks.abs().amax(-1) / x.new_tensor(127.0)       # (..., nb)
+    scale = blocks.abs().amax(-1) / torch.full((), 127.0,     # (..., nb)
+                                                device=x.device)
     safe = torch.clamp(scale, min=1e-12)
     q = torch.round(blocks / safe[..., None]).to(torch.int8)
     q = q.reshape(*x.shape[:-1], nb * BLOCK)[..., :last]

@@ -4,7 +4,7 @@ key, not by position, so two dicts built in another key order still pair
 up."""
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 
 def tree_map(fn: Callable, *trees):
@@ -20,3 +20,21 @@ def tree_leaves(tree) -> List:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_items(tree, path: str = "") -> List[Tuple[str, object]]:
+    """(path, leaf) pairs in the tree's key order, each path spelt as
+    ``jax.tree_util.keystr`` spells a dict path (``['opt']['m']['w']``)."""
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items()
+                for item in tree_items(v, f"{path}[{k!r}]")]
+    return [(path, tree)]
+
+
+def tree_map_with_path(fn: Callable, tree, path: str = ""):
+    """``fn(path, leaf)`` over the leaves of ``tree``, paths as in
+    `tree_items`."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    return fn(path, tree)

@@ -745,3 +745,162 @@ def test_model_prefill_decode_on_the_card(arch, cuda_device):
     else:
         assert _rel_err(got, want) <= MODEL_REL
         assert _rel_err(got, full) <= MODEL_REL
+
+
+#: a model's float32 gradients on the card against the CPU's, of each leaf's
+#: largest entry: the forward runs kernels 5 and 6 on the card and the
+#: chunked forms on the CPU (`MODEL_REL` apart in logits), the backward the
+#: chunked forms' autograd on both, its sums in another order (the CPU
+#: port against the JAX package reads up to 5.2e-5 from sum order alone,
+#: `tests/test_torch_train.py`)
+GRAD_REL = 2e-4
+
+
+def _grad_err(got, want) -> float:
+    got, want = got.cpu().float(), want.cpu().float()
+    return float((got - want).abs().max() / max(float(want.abs().max()),
+                                                1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-7b", "rwkv6-1.6b"])
+def test_model_loss_fn_gradients_on_the_card_match_the_cpu(arch,
+                                                           cuda_device):
+    """`Model.loss_fn(...).backward()` on the card gives every floating
+    parameter a gradient (attention's q/k/v projections and biases, and the
+    time-mix's, reach the loss only through kernels 5 and 6), each within
+    `GRAD_REL` of the CPU's; the kernel launches twice a layer (the forward
+    and remat's recompute)."""
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, rules, params = _reduced_model(arch)
+    toks = _tokens(model, 2, 16, 10)
+
+    def flat(tree, path=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in flat(sub, f"{path}[{key!r}]").items()}
+        return {path: tree}
+
+    def grads(device):
+        p = tree_map(lambda a: a.detach().to(device, copy=True)
+                     .requires_grad_(a.is_floating_point()), params)
+        total, _ = model.loss_fn(p, {"tokens": toks.to(device)}, rules)
+        total.backward()
+        return total, flat(p)
+
+    counted = (cuda_lib.FLASH_ATTENTION, cuda_lib.GLA_TIMEMIX)
+    want_total, want = grads("cpu")
+    before = [k.launches for k in counted]
+    got_total, got = grads(cuda_device)
+    torch.cuda.synchronize()
+    rise = [k.launches - b for k, b in zip(counted, before)]
+    missing = [k for k, p in got.items() if p.grad is None]
+    assert not missing, f"no gradient on the card for {missing}"
+    errs = {k: _grad_err(got[k].grad, want[k].grad) for k in want}
+    assert max(errs.values()) <= GRAD_REL, errs
+    assert _rel_err(got_total, want_total) <= MODEL_REL
+    L = model.cfg.num_layers
+    assert rise == ([0, 2 * L] if model.cfg.family == "ssm" else [2 * L, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gradients_are_the_chunked_forms(causal, hd, dt,
+                                                         cuda_device):
+    """Kernel 5's `autograd.Function`: one launch forward, and the
+    gradients of `chunked_attention` on the same q, k, v and upstream
+    gradient, at a ragged S."""
+    from repro_torch.kernels.flash_attention.ref import chunked_attention
+
+    rng = np.random.default_rng(hd)
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, dt)
+
+    q, k, v = (draw(s).requires_grad_() for s in ((2, 130, 4, hd),
+                                                  (2, 130, 2, hd),
+                                                  (2, 130, 2, hd)))
+    g = draw((2, 130, 4, hd))
+    before = cuda_lib.FLASH_ATTENTION.launches
+    out = flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert cuda_lib.FLASH_ATTENTION.launches - before == 1
+    want = torch.autograd.grad(chunked_attention(q, k, v, causal=causal),
+                               (q, k, v), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dt and _grad_err(a, b) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_gla_timemix_gradients_are_the_chunked_forms(hd, dt, cuda_device):
+    """Kernel 6's `autograd.Function`: one call forward, and the gradients
+    of the chunked form from a zero state for r, k, v, logw and u."""
+    from repro_torch.kernels.gla_timemix.kernel import timemix_from_zero
+
+    rng = np.random.default_rng(hd + 1)
+
+    def draw(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(cuda_device, dt)
+
+    r, k, v = (draw((1, 128, 2, hd), hd ** -0.5).requires_grad_()
+               for _ in range(3))
+    logw = (-torch.exp(draw((1, 128, 2, hd), 0.5))).detach().requires_grad_()
+    u = draw((2, hd)).requires_grad_()
+    ins = (r, k, v, logw, u)
+    g = draw((1, 128, 2, hd))
+    before = cuda_lib.GLA_TIMEMIX.launches
+    out = gla_timemix(*ins, chunk=32)
+    got = torch.autograd.grad(out, ins, g)
+    torch.cuda.synchronize()
+    assert cuda_lib.GLA_TIMEMIX.launches - before == 1
+    want = torch.autograd.grad(timemix_from_zero(*ins, 32), ins, g)
+    for a, b in zip(got, want):
+        assert a.dtype == dt and _grad_err(a, b) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "rwkv6-1.6b"])
+def test_train_step_on_the_card_matches_the_cpu(arch, cuda_device):
+    """One `make_train_step` step at m = 2 on float32 parameters: the loss
+    and ``grad_norm`` on the card within `GRAD_REL` of the CPU's, the
+    kernel launched twice a layer for each microbatch."""
+    import dataclasses
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, rules, params = _reduced_model(arch)
+    model = dataclasses.replace(model, par=model.par.replace(
+        num_microbatches=2))
+    toks = _tokens(model, 4, 32, 11)
+    step = make_train_step(model, rules, lr=1e-3).step_fn
+
+    def run(device):
+        p = _to(params, device)
+        return step({"params": p, "opt": adamw_init(p)},
+                    {"tokens": toks.to(device)})
+
+    _, want = run("cpu")
+    counted = (cuda_lib.FLASH_ATTENTION, cuda_lib.GLA_TIMEMIX)
+    before = [k.launches for k in counted]
+    new, got = run(cuda_device)
+    torch.cuda.synchronize()
+    rise = [k.launches - b for k, b in zip(counted, before)]
+    L = model.cfg.num_layers
+    assert rise == ([0, 4 * L] if model.cfg.family == "ssm" else [4 * L, 0])
+    for key in ("loss", "grad_norm"):
+        assert _rel_err(got[key], want[key]) <= GRAD_REL, key
+    assert int(got["step"]) == 1
+    assert all(bool(torch.isfinite(a).all())
+               for a in tree_leaves(new["params"]))

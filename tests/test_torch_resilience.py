@@ -12,7 +12,9 @@ guard verdicts, `ResilienceReport` dicts, the fault matrix's rows and
 backend the rows are also recorded beside the reference's labels, and the
 plain version is held to the sequential walk on every faulted event
 list.  The three cases of the reference's ``train.ft`` and checkpoint
-satellites have no port yet (they come with the trainer).
+satellites are ported with the trainer: ``tests/test_torch_train.py``
+(the preemption guard, the retry backoff) and
+``tests/test_torch_checkpoint.py`` (the orphan sweep and ``.tmp`` refusal).
 """
 import importlib
 import json
