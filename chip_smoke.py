@@ -232,6 +232,48 @@ failure:
    minutes to summarise).
    The launches of the three `train()` calls and of the timed steps (not
    of the comparisons) are each kernel's ``train_path_launches``.
+16. The moe, hybrid and encoder-decoder families (`models/moe.py`,
+   `models/ssm.py`, the stacks of `models/model.py`), TF32 off, weights
+   drawn from ``--seed`` on the card in bf16, each model freed before the
+   next, each with its peak memory.  qwen3-moe-30b-a3b
+   (`src/repro/configs/qwen3_moe_30b_a3b.py`) at full width and depth (48
+   layers, 128 experts, top-8) in its serving layout: `serve` answers 8
+   requests (as phase 14: 4 slots, 256 positions), twice, the second run
+   timed warm and held to the first's tokens; each prefill broadcasts its
+   prompt to the 4 slots (the experts couple the rows) and launches kernel
+   5 48 times, and no other kernel launches.  Its prefill of 1 × 4096 is
+   timed (CUDA events, median of 3) with kernel 5's and the MoE blocks'
+   shares (layer 0's call timed alone, times 48) and the products' bound
+   (`_flops_products`: the experts over their capacity slots, 1.25 times
+   the routed rows, at bf16's rate); the decode step at B = 4 as in phase
+   14, against the bytes of every weight but the embedding table.  Layer
+   0's MoE block in float32 must equal the CPU's within `PAIR_REL` at
+   B = 1, S = 512 and on a crafted input that sends every token to experts
+   0 and 1 (so both overflow): there two bf16 runs on the card must give
+   the same bits, and expert 0 must serve cap − 1 tokens on both devices
+   (the reference's overflow rule).  jamba-1.5-large-398b
+   (`src/repro/configs/jamba_1_5_large_398b.py`) at full width, cut by
+   `HYBRID_CUT` to one super-block (8 layers: 1 attention, 7 Mamba, 4 MoE)
+   and 8 of its 16 experts (top-2 kept), int8 KV: its prefill of 1 × 4096
+   timed with the Mamba sublayers' share, the decode step at B = 4, and 8
+   requests served (kernel 5 once a prefill).  whisper-medium
+   (`src/repro/configs/whisper_medium.py`) at full width and depth: a train
+   forward over 1500 frames (the encoder's 30 s context) and 448 decoder
+   tokens must call kernel 5 48 times, 24 non-causal at S = 1500 and 24
+   causal at S = 448 (cross attention is `chunked_attention`), and is
+   timed; 8 requests served with the launcher's zero frames (48 launches a
+   prefill).  Then the four new archs reduced, float32 (`family_parity`):
+   the card's train logits, decode after a prefill and loss against the
+   CPU's within `PAIR_REL` (a decode through jamba's int8 KV within
+   `FAMILY_INT8_DECODE`), every leaf with a gradient within
+   `TRAIN_GRAD_REL` of the CPU's, kernel 5 once an attention layer in the
+   forward and twice under the backward.  In the three models' first
+   serving runs, in one prefill of 1 × 4096 each of qwen3-moe-30b-a3b and
+   the jamba cut, and in whisper's train forward, every kernel 5 output is
+   held to `chunked_attention` on the same q, k and v, bf16 on the card,
+   at phase 7's tolerance on the data's scale.  The launches of the three
+   models' first serving runs and of whisper's train forward are each
+   kernel's ``family_path_launches``.
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -309,6 +351,14 @@ of each leaf's largest entry: the forwards differ by the kernels' rounding
 (`MODEL_REL`), and the backwards, the chunked forms' autograd on both
 devices, sum in another order, which alone reads up to 5.2e-5 between the
 CPU port and the JAX package (`tests/test_torch_train.py`).
+
+Phase 16 compares the reduced models at the reference's init with every
+attention's ``wq`` and ``wk`` times `FAMILY_QK_SCALE` (1/4), and a decode
+through an int8 KV cache at `FAMILY_INT8_DECODE` = 2e-2 of the largest
+logit; `repro_torch.bench.family_parity`'s docstring says why.  Its
+kernel 5 outputs inside the three served models and whisper's train
+forward are held to `chunked_attention` on the same q, k and v as phase
+14 holds qwen2-7b's, at phase 7's tolerance on the data's scale.
 
 Phase 13 compares products in float32 with TF32 off.  At D = 16 a sum of
 16 products differs by a few units of the last place between orders (the
@@ -410,7 +460,10 @@ SMALL_ATTN = ((2, 128, 4, 2, 64, True, "float32"),
               # qwen2-7b's width (phase 14 holds them inside the model)
               (4, 4, 28, 4, 128, True, "bfloat16"),
               (4, 13, 28, 4, 128, True, "bfloat16"),
-              (4, 23, 28, 4, 128, True, "bfloat16"))
+              (4, 23, 28, 4, 128, True, "bfloat16"),
+              # whisper-medium's encoder: non-causal over its 1500 frames, a
+              # ragged last tile (phase 16 holds it inside the model)
+              (1, 1500, 16, 16, 64, False, "bfloat16"))
 #: (B, S, H, hd, chunk, decay scale, dtype): tests/test_kernels.py's cases,
 #: hd = 128 at the default chunk, bf16, chunk 16 at hd 16, and a padded hd
 #: with a chunk that is no multiple of the kernel's 16-row sub-chunks
@@ -510,6 +563,25 @@ RESUME_STEPS, REPLAY_STEPS, REPLAY_FAIL = 5, 4, 27
 TRAIN_STEP = dict(B=4, S=4096)
 RWKV_STEP = dict(B=1, S=4096)
 TRAIN_REPS, RWKV_STEP_REPS = 3, 2
+#: phase 16: the moe, hybrid and encoder-decoder families.  qwen3-moe-30b-a3b
+#: (src/repro/configs/qwen3_moe_30b_a3b.py) at full width and depth, its
+#: prefill timed at B = 1, S = FAMILY_PREFILL_S, layer 0's MoE block held to
+#: the CPU at MOE_LAYER0 and on a crafted overflow (every token sent to
+#: experts 0 and 1 by an input along their router columns); jamba-1.5-large-
+#: 398b (src/repro/configs/jamba_1_5_large_398b.py) at full width cut by
+#: HYBRID_CUT; whisper-medium (src/repro/configs/whisper_medium.py) at full
+#: width and depth, a train forward over the encoder's 30 s context and the
+#: decoder's 448 tokens; the four new archs reduced (`family_parity`),
+#: float32, card against CPU
+MOE_ARCH, HYBRID_ARCH, ENCDEC_ARCH = ("qwen3-moe-30b-a3b",
+                                      "jamba-1.5-large-398b",
+                                      "whisper-medium")
+FAMILY_ARCHS = (MOE_ARCH, "dbrx-132b", HYBRID_ARCH, ENCDEC_ARCH)
+FAMILY_PREFILL_S = 4096
+MOE_LAYER0 = dict(B=1, S=512)
+MOE_OVERFLOW = dict(B=4, S=256, scale=8.0)
+HYBRID_CUT = dict(num_layers=8, num_experts=8)
+ENCDEC_FRAMES, ENCDEC_TOKENS = 1500, 448
 #: kernels redesigned for Hopper after their first port
 REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
               "flash_attention", "gla_timemix"}
@@ -2024,6 +2096,503 @@ def train_phase(seed: int, smi_line: str, dev=None) -> dict:
     return path
 
 
+def _flops_products(cfg, T: int, S: int) -> float:
+    """Operations of a prefill's products over T = B x S tokens (causal
+    attention, every logit): the attention projections and scores, the
+    dense MLPs, the MoE router and the experts over their capacity slots
+    (E x cap rows a layer, 1.25 times the routed T x K), the Mamba
+    projections and the unembedding."""
+    from repro_torch.models.moe import capacity
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    attn = 2 * T * D * (2 * H + 2 * KV) * hd + 2 * (T // S) * H * S * S * hd
+    mlp = 2 * T * 3 * D * F
+    moe = (2 * T * D * cfg.num_experts
+           + 2 * cfg.num_experts * capacity(T, cfg) * 3 * D * F)
+    di, ds = cfg.ssm_expand * D, cfg.ssm_state_dim
+    mamba = 2 * T * (D * 2 * di + di * 2 * ds + di * di + di * D)
+    total = 2 * T * D * V
+    for j in range(cfg.num_layers):
+        if cfg.family == "hybrid":
+            total += attn if j % cfg.attn_period == cfg.attn_period // 2 \
+                else mamba
+            total += moe if j % cfg.moe_every == \
+                cfg.moe_offset % cfg.moe_every else mlp
+        else:
+            total += attn + (moe if cfg.num_experts else mlp)
+    return float(total)
+
+
+def family_phase(seed: int, smi_line: str, dev=None) -> dict:
+    """Phase 16: the moe, hybrid and encoder-decoder families on the card
+    (see the docstring), ``dev`` the card's device.  Returns each kernel's
+    launches on the family path: the first serving run of each of the
+    three models and whisper-medium's train forward, counted from 0.
+    Raises on any failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.bench import cuda_ms
+    from repro_torch.bench.family_parity import (FAMILY_INT8_DECODE,
+                                                 FAMILY_QK_SCALE,
+                                                 FAMILY_SMALL, family_parity)
+    from repro_torch.configs.base import reduced
+    from repro_torch.device import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.serve import MESH, draw_requests, serve
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.models import Rules, build
+    from repro_torch.models.attention import (_project_qkv,
+                                              chunked_attention,
+                                              self_attention)
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    from repro_torch.models.moe import apply_moe, capacity
+    from repro_torch.models.ssm import apply_mamba
+    from repro_torch.tree import tree_leaves, tree_map
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 16 runs with TF32 off")
+    dev = torch.device("cuda" if dev is None else dev)
+    rng = np.random.default_rng(seed + 16)
+    path = {k.source.stem: 0 for k in cuda_lib.KERNELS}
+
+    def zero():
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+
+    def counted():
+        return {k.source.stem: k.launches for k in cuda_lib.KERNELS}
+
+    def tokens(B, S, vocab):
+        return torch.from_numpy(rng.integers(0, vocab, (B, S)).astype(
+            np.int32)).to(dev)
+
+    def rel(got, want) -> float:
+        got, want = got.detach().cpu().float(), want.detach().cpu().float()
+        return float((got - want).abs().max()
+                     / max(float(want.abs().max()), 1e-30))
+
+    def gib(n: float) -> str:
+        return f"{n / 2 ** 30:.2f} GiB"
+
+    attn_calls = {}       # label: [(B, S, H, KV, hd, causal, dtype, err)]
+
+    def attention_checked(label, fn):
+        """``fn()`` with every `self_attention` call (kernel 5) held to
+        `chunked_attention` on the same q, k and v: phase 7's tolerance
+        (`attention_err`) with both outputs divided by the chunked one's
+        RMS, as phase 14 holds qwen2-7b's server.  The calls are kept under
+        ``label``."""
+        calls = attn_calls.setdefault(label, [])
+
+        def checked_attention(q, k, v, causal=True):
+            o = self_attention(q, k, v, causal=causal)
+            ref = chunked_attention(q, k, v, causal=causal).float()
+            rms = ref.square().mean().sqrt()
+            calls.append((*q.shape[:3], k.shape[2], q.shape[3], causal,
+                          str(q.dtype).replace("torch.", ""),
+                          attention_err(o.float() / rms, ref / rms,
+                                        ATTN_TOL[str(q.dtype)])))
+            return o
+
+        attention_mod.self_attention = checked_attention
+        try:
+            return fn()
+        finally:
+            attention_mod.self_attention = self_attention
+
+    def attention_report(label, n_calls: int):
+        """Checks ``n_calls`` kernel 5 calls under ``label``, each within
+        the tolerance, and prints their shapes and the worst error."""
+        calls = attn_calls[label]
+        worst = max(c[-1] for c in calls)
+        check(len(calls) == n_calls and worst <= 1.0,
+              f"phase 16 {label}: kernel 5 against chunked_attention in "
+              f"{len(calls)} calls ({n_calls} expected), worst {worst} of "
+              f"phase 7's tolerance")
+
+        def vals(i):
+            return "/".join(str(v) for v in sorted({c[i] for c in calls}))
+        say(f"phase 16 {label}: each of the {len(calls)} kernel 5 calls (B "
+            f"{vals(0)}, S {vals(1)}, H {vals(2)}, KV {vals(3)}, hd "
+            f"{vals(4)}, causal {vals(5)}, {vals(6)}) held to "
+            f"chunked_attention on the same q, k, v: worst {worst:.3g} of "
+            f"phase 7's tolerance on the data's scale")
+
+    def built(arch, cfg):
+        """The model on the card, bf16 weights from ``seed``."""
+        bundle = configs.get(arch)
+        model = build(cfg, bundle.parallel_for("decode_32k",
+                                               multi_pod=False))
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = model.init(seed, dev)
+        torch.cuda.synchronize()
+        n = sum(a.numel() for a in tree_leaves(params))
+        nbytes = sum(a.numel() * a.element_size()
+                     for a in tree_leaves(params))
+        say(f"phase 16 {arch}: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, H {cfg.num_heads}, KV {cfg.num_kv_heads}, hd "
+            f"{cfg.head_dim_}, d_ff {cfg.d_ff}, experts {cfg.num_experts} "
+            f"top-{cfg.experts_per_token}, vocab {cfg.vocab_size}; "
+            f"{n:.4g} parameters, {gib(nbytes)} in bf16, drawn from seed "
+            f"{seed} on the card in {time.perf_counter() - t0:.2f} s")
+        return model, Rules.make(MESH, model.par), params
+
+    def served(model, params, per_prefill: int, label: str):
+        """`serve` twice (the first run's launches are the path's, the
+        second must give the same tokens); kernel 5 must launch
+        ``per_prefill`` times a prefill call and no other kernel at all.
+        The first run holds each kernel 5 output to `chunked_attention`
+        (`attention_checked`)."""
+        cfg = model.cfg
+        outputs = None
+        for run in range(2):
+            reqs = draw_requests(SERVE["requests"], cfg.vocab_size,
+                                 SERVE["max_new"], seed)
+            zero()
+            done, c = (attention_checked(f"serve {label}", lambda: serve(
+                model, params, reqs, SERVE["slots"], SERVE["max_seq"], dev))
+                if run == 0 else serve(model, params, reqs, SERVE["slots"],
+                                       SERVE["max_seq"], dev))
+            launched = counted()
+            n_tok = sum(len(r.generated) for r in done)
+            check(len(done) == SERVE["requests"]
+                  and all(r.done for r in done),
+                  f"phase 16 {label}: served {len(done)} of "
+                  f"{SERVE['requests']}")
+            check(all(0 <= t < cfg.vocab_size for r in done
+                      for t in r.generated),
+                  f"phase 16 {label}: a token past the vocab")
+            check(c["prefills"] == SERVE["requests"]
+                  and launched["flash_attention"] == per_prefill
+                  * c["prefills"] and not any(
+                      n for k, n in launched.items()
+                      if k != "flash_attention"),
+                  f"phase 16 {label} serve: {json.dumps(launched)} for "
+                  f"{c['prefills']} prefill calls, {per_prefill} each")
+            if run == 0:
+                for k, n in launched.items():
+                    path[k] += n
+                outputs = {r.rid: list(r.generated) for r in done}
+                attention_report(f"serve {label}",
+                                 launched["flash_attention"])
+            else:
+                check({r.rid: r.generated for r in done} == outputs,
+                      f"phase 16 {label}: the second run served other "
+                      f"tokens")
+            say(f"phase 16 serve {label} ("
+                f"{'first, checked' if run == 0 else 'warm, same tokens'} "
+                f"run): "
+                f"{SERVE['requests']} requests, {SERVE['slots']} slots, "
+                f"cache {SERVE['max_seq']}: {n_tok} tokens in "
+                f"{c['seconds']:.4f} s host clock, "
+                f"{n_tok / c['seconds']:.2f} tokens/s, {c['steps']} decode "
+                f"steps, occupancy "
+                f"{c['slot_steps'] / max(c['steps'], 1):.2f}/"
+                f"{SERVE['slots']}, {c['prefills']} prefill calls, kernel 5 "
+                f"launched {launched['flash_attention']} times; {smi_line}")
+
+    def profiled(fn, label, calls: int = 1):
+        """``calls`` calls of ``fn`` under torch.profiler: the device's
+        kernels alone, their time a call, their count a call and the five
+        that take the most device time (name shortened)."""
+        with torch.no_grad(), torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in kernels)
+        if not device_us:
+            say(f"phase 16 {label}: device time not measured (the profiler "
+                f"recorded none)")
+            return 0.0
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+        say(f"phase 16 {label}, torch.profiler: {device_us / calls / 1e3:.3f}"
+            f" ms of device time and "
+            f"{sum(e.count for e in kernels) / calls:.0f} device kernels a "
+            f"call; the heaviest: " + "; ".join(
+                f"{e.key[:60]} {e.self_device_time_total / calls / 1e3:.3f} ms"
+                f" ({e.count / calls:.0f}x)" for e in top))
+        return device_us / calls / 1e3
+
+    def decode_step(model, params, rules, label):
+        """The median decode step at B = slots over `DECODE_REPS`, one
+        profile of 3 steps, and the weights' bytes over the memory rate
+        (every weight but the embedding table, which is a lookup)."""
+        B = SERVE["slots"]
+        cache = model.init_cache(B, SERVE["max_seq"], dev)
+        batch = {"tokens": tokens(B, 1, model.cfg.vocab_size),
+                 "pos": SERVE["max_seq"] // 2}
+        if model.cfg.family == "encdec":
+            batch["frames"] = torch.zeros((B, 1, model.cfg.d_model),
+                                          device=dev)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: model.decode_fn(params, batch, cache, rules),
+                         DECODE_REPS)
+        device_ms = profiled(lambda: model.decode_fn(params, batch, cache,
+                                                     rules),
+                             f"{label} decode step", 3)
+        busy = (f"busy {device_ms / ms:.3f} of it (device time over the "
+                f"step's)" if device_ms else "busy share not measured")
+        weights = sum(a.numel() * a.element_size()
+                      for a in tree_leaves(params)) - \
+            params["embed"]["embedding"].numel() * \
+            params["embed"]["embedding"].element_size()
+        say(f"phase 16 {label} decode step, B = {B}, cache "
+            f"{SERVE['max_seq']}: {ms:.3f} ms (median of {DECODE_REPS}); "
+            f"{busy}; bound: its weights' bytes ({gib(weights)}, the "
+            f"embedding table excluded) over the card's memory rate, "
+            f"{weights / HBM_BW * 1e3:.3f} ms; {smi_line}")
+        del cache
+
+    def peak(label):
+        say(f"phase 16 {label}: peak device memory "
+            f"{gib(torch.cuda.max_memory_allocated(dev))}")
+
+    # ---- qwen3-moe-30b-a3b at full width and depth, bf16
+    cfg = configs.get(MOE_ARCH).model
+    model, rules, params = built(MOE_ARCH, cfg)
+    L = cfg.num_layers
+    served(model, params, L, MOE_ARCH)
+    S = FAMILY_PREFILL_S
+    toks = tokens(1, S, cfg.vocab_size)
+    cache = model.init_cache(1, S, dev)
+    with torch.no_grad():
+        attention_checked(f"{MOE_ARCH} prefill 1 x {S}", lambda: model.
+                          prefill_fn(params, {"tokens": toks}, rules, cache))
+        attention_report(f"{MOE_ARCH} prefill 1 x {S}", L)
+        prefill_ms = cuda_ms(lambda: model.prefill_fn(
+            params, {"tokens": toks}, rules, cache), MODEL_REPS)
+        lp = tree_map(lambda a: a[0], params["layers"])
+        x = embed_tokens(params["embed"], toks, cfg, rules)
+        h = apply_norm(lp["attn_norm"], x, cfg)
+        q, k, v = _project_qkv(lp["attn"], h, cfg, rules,
+                               torch.arange(S, device=dev)[None])
+        attn_ms = cuda_ms(lambda: self_attention(q, k, v, causal=True), 5)
+        h2 = apply_norm(lp["mlp_norm"], x, cfg)
+        moe_ms = cuda_ms(lambda: apply_moe(lp["mlp"], h2, cfg, rules),
+                         MODEL_REPS)
+    prefill_device = profiled(lambda: model.prefill_fn(
+        params, {"tokens": toks}, rules, cache), f"{MOE_ARCH} prefill")
+    del cache, q, k, v
+    flops = _flops_products(cfg, S, S)
+    cap = capacity(S, cfg)
+    say(f"phase 16 {MOE_ARCH} prefill 1 x {S} tokens, bf16: "
+        f"{prefill_ms:.3f} ms (CUDA events, median of {MODEL_REPS}); "
+        f"kernel 5: {L} launches x {attn_ms:.4f} ms (layer 0 alone) = "
+        f"{L * attn_ms / prefill_ms:.4f} of it; the MoE blocks: {L} x "
+        f"{moe_ms:.4f} ms (layer 0's alone) = {L * moe_ms / prefill_ms:.4f}"
+        f" of it; bound: the products' {flops:.4g} operations (experts over "
+        f"{cfg.num_experts} x {cap} slots, {cfg.num_experts * cap / (S * cfg.experts_per_token):.3f} "
+        f"x the routed rows) at bf16's {PEAK_FLOPS_BF16:.3g}/s, "
+        f"{flops / PEAK_FLOPS_BF16 * 1e3:.3f} ms; device busy "
+        f"{prefill_device / prefill_ms:.3f} of it; {smi_line}")
+    decode_step(model, params, rules, MOE_ARCH)
+
+    # layer 0's MoE block, float32, against the CPU on the same inputs
+    # (no expert overflows at 1.25 x), then a crafted input that sends
+    # every token to experts 0 and 1: bit-equal across two card runs, cap - 1
+    # tokens served by the overflowing expert on both devices, and the CPU's
+    # result
+    mp = {n: w.float() for n, w in lp["mlp"].items()}
+    mp_cpu = {n: w.cpu() for n, w in mp.items()}
+    Bl, Sl = MOE_LAYER0["B"], MOE_LAYER0["S"]
+    with torch.no_grad():
+        x0 = apply_norm({n: w.float() for n, w in lp["mlp_norm"].items()},
+                        embed_tokens(params["embed"], tokens(
+                            Bl, Sl, cfg.vocab_size), cfg, rules).float(),
+                        cfg)
+        y_card, aux_card = apply_moe(mp, x0, cfg, rules)
+        y_cpu, aux_cpu = apply_moe(mp_cpu, x0.cpu(), cfg, rules)
+        layer0 = (rel(y_card, y_cpu), rel(aux_card, aux_cpu))
+        route = mp["router"][:, 0] + mp["router"][:, 1]
+        noise = torch.from_numpy(rng.standard_normal(
+            (MOE_OVERFLOW["B"], MOE_OVERFLOW["S"], cfg.d_model)).astype(
+                np.float32)).to(dev)
+        xo = 0.1 * noise + MOE_OVERFLOW["scale"] * route
+        runs = [apply_moe(lp["mlp"], xo.to(torch.bfloat16), cfg, rules)
+                for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+        keep0 = (torch.arange(cfg.num_experts, device=dev) == 0)
+        only0 = dict(mp, wo=mp["wo"] * keep0[:, None, None])
+        Tover = MOE_OVERFLOW["B"] * MOE_OVERFLOW["S"]
+        cap_o = capacity(Tover, cfg)
+        n_card = int((apply_moe(only0, xo, cfg, rules)[0].abs().amax(-1)
+                      > 0).sum())
+        n_cpu = int((apply_moe({n: w.cpu() for n, w in only0.items()},
+                               xo.cpu(), cfg, rules)[0].abs().amax(-1)
+                     > 0).sum())
+        over = rel(apply_moe(mp, xo, cfg, rules)[0],
+                   apply_moe(mp_cpu, xo.cpu(), cfg, rules)[0])
+    check(max(layer0) <= PAIR_REL and over <= PAIR_REL,
+          f"phase 16 {MOE_ARCH} layer 0 MoE against the CPU: {layer0}, "
+          f"overflow {over} (bar {PAIR_REL})")
+    check(same, f"phase 16 {MOE_ARCH}: the overflowing MoE gave other bits "
+          f"on a second run")
+    check(n_card == n_cpu == cap_o - 1, f"phase 16 {MOE_ARCH}: expert 0 "
+          f"served {n_card} tokens on the card, {n_cpu} on the CPU, cap "
+          f"{cap_o}")
+    say(f"phase 16 {MOE_ARCH} layer 0 MoE block, float32, B = {Bl}, S = "
+        f"{Sl}: against the CPU y {layer0[0]:.3g}, aux {layer0[1]:.3g} of "
+        f"the largest (bar {PAIR_REL}); every token sent to experts 0 and 1 "
+        f"(B = {MOE_OVERFLOW['B']}, S = {MOE_OVERFLOW['S']}, cap {cap_o}): "
+        f"bf16 bit-equal across two card runs, expert 0 serves {n_card} "
+        f"tokens on the card and {n_cpu} on the CPU (cap - 1), float32 "
+        f"against the CPU {over:.3g}")
+    peak(MOE_ARCH)
+    del params, model, lp, mp, mp_cpu, only0, x, h, h2, x0, xo, runs, noise
+    del route, y_card, y_cpu
+    torch.cuda.empty_cache()
+    say(f"phase 16: {gib(torch.cuda.memory_allocated(dev))} held after "
+        f"freeing {MOE_ARCH}")
+
+    # ---- jamba-1.5-large-398b at full width, cut
+    full = configs.get(HYBRID_ARCH).model
+    cfg = dataclasses.replace(full, **HYBRID_CUT)
+    say(f"phase 16 {HYBRID_ARCH}: the full model has {full.param_count():.4g}"
+        f" parameters ({full.num_layers} layers, {full.num_experts} "
+        f"experts); cut to {cfg.num_layers} layers (one super-block: 1 "
+        f"attention, {cfg.attn_period - 1} Mamba, "
+        f"{cfg.num_layers // cfg.moe_every} MoE) and {cfg.num_experts} of "
+        f"its {full.num_experts} experts (top-{cfg.experts_per_token} "
+        f"kept), widths as published")
+    model, rules, params = built(HYBRID_ARCH, cfg)
+    toks = tokens(1, S, cfg.vocab_size)
+    cache = model.init_cache(1, S, dev)
+    with torch.no_grad():
+        attention_checked(f"{HYBRID_ARCH} (cut) prefill 1 x {S}",
+                          lambda: model.prefill_fn(params, {"tokens": toks},
+                                                   rules, cache))
+        attention_report(f"{HYBRID_ARCH} (cut) prefill 1 x {S}",
+                         cfg.num_layers // cfg.attn_period)
+        zero()
+        hybrid_ms = cuda_ms(lambda: model.prefill_fn(
+            params, {"tokens": toks}, rules, cache), MODEL_REPS)
+        per_prefill = counted()["flash_attention"] / (MODEL_REPS + 1)
+        sp = tree_map(lambda a: a[0], params["layers"])
+        x = apply_norm(tree_map(lambda a: a[0], sp["pre_norms"]),
+                       embed_tokens(params["embed"], toks, cfg, rules), cfg)
+        mamba_ms = cuda_ms(lambda: apply_mamba(
+            tree_map(lambda a: a[0], sp["mamba"]), x, cfg, rules, "prefill",
+            None), MODEL_REPS)
+    hybrid_device = profiled(lambda: model.prefill_fn(
+        params, {"tokens": toks}, rules, cache), f"{HYBRID_ARCH} (cut) "
+        f"prefill")
+    del cache, x
+    check(per_prefill == cfg.num_layers // cfg.attn_period,
+          f"phase 16 {HYBRID_ARCH}: {per_prefill} launches of kernel 5 a "
+          f"prefill")
+    flops = _flops_products(cfg, S, S)
+    n_mamba = cfg.num_layers // cfg.attn_period * (cfg.attn_period - 1)
+    say(f"phase 16 {HYBRID_ARCH} (cut) prefill 1 x {S} tokens, bf16: "
+        f"{hybrid_ms:.3f} ms (median of {MODEL_REPS}); kernel 5 launched "
+        f"{per_prefill:.0f} times a prefill; the Mamba sublayers: {n_mamba} x"
+        f" {mamba_ms:.3f} ms (sublayer 0 alone) = "
+        f"{n_mamba * mamba_ms / hybrid_ms:.4f} of it; bound: the products' "
+        f"{flops:.4g} operations at bf16's rate, "
+        f"{flops / PEAK_FLOPS_BF16 * 1e3:.3f} ms; device busy "
+        f"{hybrid_device / hybrid_ms:.3f} of it; {smi_line}")
+    decode_step(model, params, rules, f"{HYBRID_ARCH} (cut)")
+    served(model, params, cfg.num_layers // cfg.attn_period,
+           f"{HYBRID_ARCH} (cut)")
+    peak(f"{HYBRID_ARCH} (cut)")
+    del params, model, sp
+    torch.cuda.empty_cache()
+
+    # ---- whisper-medium at full width and depth
+    cfg = configs.get(ENCDEC_ARCH).model
+    model, rules, params = built(ENCDEC_ARCH, cfg)
+    batch = {"tokens": tokens(1, ENCDEC_TOKENS, cfg.vocab_size),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (1, ENCDEC_FRAMES, cfg.d_model)).astype(np.float32)).to(dev)}
+    zero()
+    label = f"{ENCDEC_ARCH} train forward"
+    with torch.no_grad():
+        logits = attention_checked(label, lambda: model.forward(
+            params, batch, rules, "train")[0])
+    torch.cuda.synchronize()
+    launched = counted()
+    flags = [(c[1], c[5]) for c in attn_calls[label]]
+    want = ([(ENCDEC_FRAMES, False)] * cfg.encoder_layers
+            + [(ENCDEC_TOKENS, True)] * cfg.num_layers)
+    attention_report(label, len(want))
+    check(flags == want and launched["flash_attention"] == len(want)
+          and not any(n for k, n in launched.items()
+                      if k != "flash_attention")
+          and bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (1, ENCDEC_TOKENS, cfg.padded_vocab()),
+          f"phase 16 {ENCDEC_ARCH} train forward: {json.dumps(launched)}, "
+          f"{len(flags)} attention calls")
+    for k, n in launched.items():
+        path[k] += n
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: model.forward(params, batch, rules,
+                                               "train"), MODEL_REPS)
+    D, V = cfg.d_model, cfg.padded_vocab()
+    enc_flops = float(
+        cfg.encoder_layers * (2 * ENCDEC_FRAMES * 12 * D * D
+                              + 4 * ENCDEC_FRAMES ** 2 * D)
+        + cfg.num_layers * (2 * ENCDEC_TOKENS * 14 * D * D
+                            + 2 * ENCDEC_FRAMES * 2 * D * D
+                            + 2 * ENCDEC_TOKENS ** 2 * D
+                            + 4 * ENCDEC_TOKENS * ENCDEC_FRAMES * D)
+        + 2 * ENCDEC_TOKENS * D * V)
+    enc_device = profiled(lambda: model.forward(params, batch, rules,
+                                                "train"),
+                          f"{ENCDEC_ARCH} train forward")
+    say(f"phase 16 {ENCDEC_ARCH} train forward, {ENCDEC_FRAMES} frames and "
+        f"{ENCDEC_TOKENS} tokens, bf16: kernel 5 launched "
+        f"{launched['flash_attention']} times ({cfg.encoder_layers} "
+        f"non-causal at S = {ENCDEC_FRAMES}, {cfg.num_layers} causal at S = "
+        f"{ENCDEC_TOKENS}; cross attention is chunked_attention); "
+        f"{enc_ms:.3f} ms (median of {MODEL_REPS}), device busy "
+        f"{enc_device / enc_ms:.3f} of it; bound: the products' "
+        f"{enc_flops:.4g} operations at bf16's rate, "
+        f"{enc_flops / PEAK_FLOPS_BF16 * 1e3:.3f} ms; {smi_line}")
+    served(model, params, cfg.encoder_layers + cfg.num_layers, ENCDEC_ARCH)
+    peak(ENCDEC_ARCH)
+    del params, model, logits, batch
+    torch.cuda.empty_cache()
+
+    # ---- the four archs reduced, float32, card against CPU
+    for arch in FAMILY_ARCHS:
+        e = family_parity(arch, seed, dev)
+        bundle = configs.get(arch)
+        rc = reduced(bundle.model)
+        n_attn = (rc.encoder_layers + rc.num_layers if rc.family == "encdec"
+                  else rc.num_layers // rc.attn_period
+                  if rc.family == "hybrid" else rc.num_layers)
+        int8 = bundle.parallel_for("decode_32k", False).kv_cache_dtype \
+            == "int8"
+        check(e["train"] <= PAIR_REL and e["loss"] <= PAIR_REL
+              and e["grad"] <= TRAIN_GRAD_REL
+              and e["decode"] <= (FAMILY_INT8_DECODE if int8 else PAIR_REL)
+              and e["launches_forward"] == n_attn
+              and e["launches_backward"] == 2 * n_attn,
+              f"phase 16 {arch} reduced, card against CPU: {e}")
+        say(f"phase 16 {arch} reduced, float32, B = {FAMILY_SMALL['B']}, "
+            f"S = {FAMILY_SMALL['S']}, wq and wk x {FAMILY_QK_SCALE}: "
+            f"against the CPU train logits {e['train']:.3g}, decode after "
+            f"prefill {e['decode']:.3g} (bar "
+            f"{FAMILY_INT8_DECODE if int8 else PAIR_REL}"
+            f"{', int8 KV' if int8 else ''}), loss {e['loss']:.3g} (bar "
+            f"{PAIR_REL}); {e['leaves']} leaves each with a gradient, worst "
+            f"{e['grad']:.3g} ({e['grad_leaf']}; bar {TRAIN_GRAD_REL}); "
+            f"kernel 5 launched {e['launches_forward']} times in the train "
+            f"forward and {e['launches_backward']} in loss_fn's forward and "
+            f"backward ({n_attn} attention layers)")
+    say(f"phase 16 kernel launches on the family path: {json.dumps(path)}")
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2652,7 +3221,8 @@ def main() -> int:
         dt = getattr(torch, dname)
         q, k, v = qkv(B, S, H, KV, hd, dt)
         got = fa.flash_attention(q, k, v, causal=causal)
-        blk = math.gcd(S, 64)             # the plain version's blocks
+        # the plain version's blocks: S's largest divisor up to 64
+        blk = max(d for d in range(1, 65) if S % d == 0)
         want = fa._flash_attention_plain(q, k, v, causal=causal, bq=blk,
                                          bk=blk)
         tol = 1e-5 if dt == torch.float32 else ATTN_TOL[str(dt)]
@@ -2880,6 +3450,14 @@ def main() -> int:
     for row in rows:
         row["train_path_launches"] = train_launches[row["name"].split("[")[0]]
     say(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------- phase 16 --
+    t0 = time.perf_counter()
+    family_launches = family_phase(args.seed, smi_line)
+    for row in rows:
+        row["family_path_launches"] = family_launches[
+            row["name"].split("[")[0]]
+    say(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     say(smi_line)

@@ -12,10 +12,21 @@ The port of `repro.launch.serve`, on one device (the card unless
 around a built model and its parameters (a prefill of one prompt into the
 admitted slot's cache rows, and a decode step of every slot at the largest
 slot position) under `repro_torch.serve`'s batcher.  The reference prefills
-the prompt broadcast to every slot and keeps the admitted slot's rows; each
+the prompt broadcast to every slot, from the whole cache, and keeps the
+admitted slot's rows.  In the dense, ssm and encoder-decoder families each
 row is computed alone, so a prefill at B = 1 on a view of that slot's rows
-gives the same rows and logits.  `main` draws the parameters from ``--seed``
-and the requests as the reference launcher draws them, and prints its line.
+gives the same rows and logits, and the port prefills so.  Where the model
+has experts (moe, hybrid) the rows are coupled: an expert's capacity counts
+the tokens of every row, so which of the slot's tokens an expert drops
+depends on the others.  There the port prefills as the reference does: the
+prompt broadcast to all B slots on a copy of the cache, the slot's rows
+copied back.  A slot's rows lie along each cache leaf's batch axis, where
+its plan names ``"batch"`` (dim 2 of the hybrid's Mamba leaves; the
+reference's merge assumes dim 1 and fails there).  The encoder-decoder gets
+the reference launcher's zero ``frames``, (B, len(prompt), d_model) at
+prefill and (B, 1, d_model) at decode.  `main` draws the parameters from
+``--seed`` and the requests as the reference launcher draws them, and
+prints its line.
 """
 from __future__ import annotations
 
@@ -62,22 +73,43 @@ def serve(model, params, requests: List[Request], slots: int, max_seq: int,
     (host clock of the whole run)."""
     dev = resolve_device(device)
     rules = Rules.make(MESH, model.par)
+    cfg = model.cfg
     B = slots
     box = {"cache": model.init_cache(B, max_seq, dev), "prefills": 0}
+    axes = model.batch_axes()
+    coupled = cfg.num_experts > 0
+
+    def with_frames(batch, n: int):
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((batch["tokens"].shape[0], n,
+                                           cfg.d_model), device=dev)
+        return batch
+
+    def rows(leaf, key, slot):
+        return leaf.narrow(axes[key], slot, 1)
 
     def prefill_fn(slot: int, prompt) -> int:
-        # single-slot prefill at B = 1 on a view of `slot`'s cache rows
-        # (cache leaves are (L, B, …): batch is dim 1); the model writes its
-        # cache in place, so the other slots' rows stay as they were
         toks = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
-        view = {k: v[:, slot:slot + 1] for k, v in box["cache"].items()}
-        logits, _ = model.prefill_fn(params, {"tokens": toks}, rules, view)
+        cache = box["cache"]
+        if coupled:
+            # the prompt in every row, from a copy of the whole cache; the
+            # slot's rows are copied back
+            toks = toks.expand(B, -1)
+            work = {k: v.clone() for k, v in cache.items()}
+        else:
+            # B = 1 on a view of the slot's rows, written in place
+            work = {k: rows(v, k, slot) for k, v in cache.items()}
+        logits, work = model.prefill_fn(
+            params, with_frames({"tokens": toks}, toks.shape[1]), rules, work)
+        if coupled:
+            for k, v in cache.items():
+                rows(v, k, slot).copy_(rows(work[k], k, slot))
         box["prefills"] += 1
-        return int(torch.argmax(logits[0, -1]))
+        return int(torch.argmax(logits[slot if coupled else 0, -1]))
 
     def step_fn(tokens, pos):
-        batch = {"tokens": torch.as_tensor(tokens, device=dev),
-                 "pos": int(pos.max())}
+        batch = with_frames({"tokens": torch.as_tensor(tokens, device=dev),
+                             "pos": int(pos.max())}, 1)
         logits, box["cache"] = model.decode_fn(params, batch, box["cache"],
                                                rules)
         return torch.argmax(logits[:, 0], dim=-1).cpu().numpy()

@@ -1,6 +1,6 @@
-"""Model zoo: the dense and RWKV-6 architectures, built from shared layers
-(the port of `repro.models`; the moe, hybrid and encoder-decoder families
-are not ported yet)."""
+"""Model zoo: every family of the reference's architectures (dense, MoE,
+the jamba hybrid, RWKV-6 and the whisper encoder-decoder), built from shared
+layers (the port of `repro.models`)."""
 from .model import Model, build
 from .sharding import Rules
 

@@ -12,8 +12,9 @@ attention at scale hd^-½ with query head h reading kv head h % KV, and
 under autograd the kernel's gradient is `chunked_attention`'s (the
 wrapper's `autograd.Function`).
 Decode stays `decode_attention`, in PyTorch, as the reference computes it in
-XLA: its ``kv_len`` mask and int8 scales are no part of kernel 5.  Cross
-attention (Sq ≠ Skv) runs `chunked_attention` on every device.
+XLA: its ``kv_len`` mask and int8 scales are no part of kernel 5.  The
+encoder's non-causal self attention is kernel 5 too.  Cross attention
+(Sq ≠ Skv) runs `chunked_attention` on every device, as in the reference.
 
 The KV cache is a dict of stacked tensors, (L, B, S, KV, hd), written in
 place: `cache_write_token` and `cache_write_layer` update the tensor they
@@ -208,10 +209,14 @@ def cache_write_layer(cache, layer_idx, kv, rules: Rules):
 
 
 def cross_attention(p, x, enc_kv, cfg: ModelConfig, rules: Rules):
-    """Decoder→encoder attention; enc_kv = (k, v) precomputed from encoder."""
+    """Decoder→encoder attention; enc_kv = (k, v) precomputed from encoder.
+    The output is in v's dtype (`chunked_attention`'s), so a bfloat16 cache
+    read by a float32 model meets ``wo`` in their promoted dtype, as jnp
+    promotes the reference's product."""
     q = _heads_in(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     k, v = enc_kv
     o = chunked_attention(q, k, v, causal=False)
-    return _heads_out(o, p["wo"])
+    dt = torch.promote_types(o.dtype, p["wo"].dtype)
+    return _heads_out(o.to(dt), p["wo"].to(dt))

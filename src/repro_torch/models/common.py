@@ -68,13 +68,29 @@ def partition_specs(plan, rules: Rules):
     return plan_map(lambda p: rules.spec(p.shape, p.names), plan)
 
 
+#: the most elements `_normal` draws at once where a slice could be split
+_DRAW_ELEMENTS = 2 ** 28
+
+
+def _slices(t: torch.Tensor):
+    """``t`` one slice of its leading dimension at a time, and a slice of
+    three or more dimensions past `_DRAW_ELEMENTS` again by its own leading
+    one (the jamba super-block's stacked experts, (1, 4, 8, 8192, 24576),
+    would be a 24 GiB float32 draw)."""
+    for part in t:
+        if part.dim() >= 3 and part.numel() > _DRAW_ELEMENTS:
+            yield from _slices(part)
+        else:
+            yield part
+
+
 def _normal(gen: torch.Generator, shape, std: float, out: torch.Tensor
             ) -> None:
     """``out`` ← std · N(0, 1) drawn in float32, then cast.  A leaf of three
     or more dimensions is drawn one slice of its leading (layer) dimension
-    at a time, so the float32 draw of a stacked leaf never needs the whole
-    leaf (qwen2-7b's MLP weights are 1.9e9 elements)."""
-    slices = [out[i] for i in range(shape[0])] if len(shape) >= 3 else [out]
+    at a time (`_slices`), so the float32 draw of a stacked leaf never
+    needs the whole leaf (qwen2-7b's MLP weights are 1.9e9 elements)."""
+    slices = _slices(out) if len(shape) >= 3 else [out]
     for part in slices:
         draw = torch.randn(part.shape, generator=gen, dtype=torch.float32,
                            device=out.device)

@@ -9,7 +9,6 @@ kernels are CUDA C++ with no CPU mode.  The file imports neither jax nor
 (``--noconftest`` because `tests/conftest.py` imports jax).  `chip_smoke.py`
 makes the same comparisons, and more, at the main path's shapes.
 """
-import math
 
 import numpy as np
 import pytest
@@ -293,6 +292,9 @@ ATTENTION_CASES = [
     (4, 4, 28, 4, 128, True, torch.bfloat16, 2e-2),
     (4, 13, 28, 4, 128, True, torch.bfloat16, 2e-2),
     (4, 23, 28, 4, 128, True, torch.bfloat16, 2e-2),
+    # whisper-medium's encoder: non-causal over 1500 frames, a ragged last
+    # tile
+    (1, 1500, 16, 16, 64, False, torch.bfloat16, 2e-2),
 ]
 
 
@@ -306,7 +308,8 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, KV, hd, causal,
                .to(cuda_device, dt)
                for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
     got = flash_attention(q, k, v, causal=causal)
-    blk = math.gcd(S, 32)                 # the plain version's blocks
+    # the plain version's blocks: S's largest divisor up to 32
+    blk = max(d for d in range(1, 33) if S % d == 0)
     want = _flash_attention_plain(q, k, v, causal=causal, bq=blk, bk=blk)
     torch.cuda.synchronize()
     assert got.dtype == dt
@@ -904,3 +907,87 @@ def test_train_step_on_the_card_matches_the_cpu(arch, cuda_device):
     assert int(got["step"]) == 1
     assert all(bool(torch.isfinite(a).all())
                for a in tree_leaves(new["params"]))
+
+
+#: the moe, hybrid and encoder-decoder archs, reduced
+FAMILY_ARCHS = ("qwen3-moe-30b-a3b", "dbrx-132b", "jamba-1.5-large-398b",
+                "whisper-medium")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_gradients_on_the_card_match_the_cpu(
+        arch, cuda_device):
+    """`repro_torch.bench.family_parity`, the reduced comparison (every
+    attention's wq and wk times 1/4, see its docstring): a float32 train
+    forward on the card launches kernel 5 once an attention layer
+    (whisper's encoder layers non-causally) and its logits are within
+    `MODEL_REL` of the CPU's, as are the decode logits after a prefill (a
+    decode through jamba's int8 KV within the script's bar) and the loss;
+    ``loss_fn``'s gradients reach every leaf, each within `GRAD_REL` of
+    the CPU's, with kernel 5 launched twice an attention layer (forward
+    and recompute)."""
+    from repro_torch.bench.family_parity import (FAMILY_INT8_DECODE,
+                                                 family_parity)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, _, _ = _reduced_model(arch)
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        n_attn = cfg.encoder_layers + cfg.num_layers
+    elif cfg.family == "hybrid":
+        n_attn = cfg.num_layers // cfg.attn_period
+    else:
+        n_attn = cfg.num_layers
+    e = family_parity(arch, 1, cuda_device)
+    int8 = model.par.kv_cache_dtype == "int8"
+    assert e["launches_forward"] == n_attn
+    assert e["launches_backward"] == 2 * n_attn
+    assert max(e["train"], e["loss"]) <= MODEL_REL, e
+    assert e["decode"] <= (FAMILY_INT8_DECODE if int8 else MODEL_REL), e
+    assert e["grad"] <= GRAD_REL, e
+
+
+@pytest.mark.cuda
+def test_overflowing_moe_is_bit_equal_across_card_runs(cuda_device):
+    """`apply_moe` at reduced qwen3-moe width (E = 8, K = 2) with every
+    token routed to experts 0 and 1, so both overflow: two runs on the card
+    give the same bits, forward and gradients, and the overflowing expert
+    serves cap − 1 tokens as on the CPU."""
+    from repro_torch.models.moe import apply_moe, capacity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, rules, params = _reduced_model("qwen3-moe-30b-a3b")
+    cfg = model.cfg
+    p = {k: v[0].clone() for k, v in params["layers"]["mlp"].items()}
+    rng = np.random.default_rng(13)
+    B, S, E = 4, 64, cfg.num_experts
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    x[..., 0] = 1.0 + rng.random((B, S))
+    router = 0.01 * rng.standard_normal((cfg.d_model, E))
+    router[0] = [4.0, 3.0] + [-1.0 - 0.1 * e for e in range(E - 2)]
+    p["router"] = torch.from_numpy(router.astype(np.float32))
+    x = torch.from_numpy(x)
+    upstream = torch.from_numpy(rng.standard_normal(x.shape).astype(
+        np.float32))
+
+    def run(device):
+        q = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+        xd = x.to(device).requires_grad_(True)
+        y, aux = apply_moe(q, xd, cfg, rules)
+        ((y * upstream.to(device)).sum() + aux).backward()
+        return [y.detach(), aux.detach(), xd.grad] + [
+            q[k].grad for k in sorted(q)]
+
+    first, second = run(cuda_device), run(cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    served = dict(p, wo=p["wo"] * (torch.arange(E) == 0)[:, None, None])
+    with torch.no_grad():
+        y0 = apply_moe(_to(served, cuda_device), x.to(cuda_device), cfg,
+                       rules)[0]
+        y0_cpu = apply_moe(served, x, cfg, rules)[0]
+    cap = capacity(B * S, cfg)
+    n = int((y0.abs().amax(-1) > 0).sum())
+    assert n == cap - 1 == int((y0_cpu.abs().amax(-1) > 0).sum())
+    assert _rel_err(first[0], apply_moe(p, x, cfg, rules)[0].detach()) \
+        <= MODEL_REL

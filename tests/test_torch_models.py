@@ -27,8 +27,10 @@ is jitted once per (arch, mode) in a module-scoped fixture.
    recurrence; autograd through ``loss_fn`` gives finite, nonzero
    gradients.
 4. `tests/test_sharding_rules.py`'s four cases on the port's `Rules`; the
-   configs registry equals the reference's; `build` refuses the moe,
-   hybrid and encoder-decoder families; `Model.init` without a device
+   configs registry equals the reference's; `build` accepts every
+   registered arch, with the reference's parameter, cache and spec plans
+   (the moe, hybrid and encoder-decoder families are held to the reference
+   in `tests/test_torch_families.py`); `Model.init` without a device
    refuses a host with no card.
 """
 import dataclasses
@@ -61,11 +63,10 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 MESH = Mesh(np.array(jax.devices()).reshape(1, 1), ("data", "model"))
 ONE = {"data": 1, "model": 1}
-#: the dense and ssm archs the port builds, and the families it refuses
+#: the dense and ssm archs (the other families are in
+#: tests/test_torch_families.py)
 ARCHS = ("smollm-135m", "qwen2-7b", "llama3-405b", "chameleon-34b",
          "command-r-35b", "rwkv6-1.6b")
-NOT_PORTED = ("dbrx-132b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
-              "whisper-medium")
 B, S = 2, 16
 REL = 1e-5                      # float32, relative to the largest logit
 
@@ -376,11 +377,33 @@ def test_plans_and_specs_match_the_reference():
         assert specs == jspecs, arch
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_build_refuses_families_not_ported(arch):
-    bundle = configs.get(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(reduced(bundle.model), bundle.parallel_for("train_4k", False))
+@pytest.mark.parametrize("arch", configs.arch_names())
+def test_build_accepts_every_registered_arch(arch):
+    """`build` takes every arch of the registry, at full size (a plan, no
+    tensors) and reduced, with the reference's shapes, cache shapes and
+    parameter specs, and the cache's batch axis where its plan names it."""
+    bundle, ref = configs.get(arch), jconfigs.get(arch)
+    for cell in ("train_4k", "decode_32k"):
+        par = bundle.parallel_for(cell, False)
+        jpar = ref.parallel_for(cell, False)
+        full = build(bundle.model, par)
+        assert tree_map(lambda a: tuple(a.shape), full.abstract_params()) == \
+            jax.tree.map(lambda a: tuple(a.shape),
+                         jbuild(ref.model, jpar).abstract_params())
+        m = build(reduced(bundle.model), par)
+        jm = jbuild(jreduced(ref.model), jpar)
+        assert tree_map(lambda a: tuple(a.shape), m.abstract_params()) == \
+            jax.tree.map(lambda a: tuple(a.shape), jm.abstract_params())
+        cache = tree_map(lambda a: (tuple(a.shape), str(a.dtype)[6:]),
+                         m.abstract_cache(3, 8))
+        assert cache == jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                                     jm.abstract_cache(3, 8)), (arch, cell)
+        assert all(cache[k][0][ax] == 3 for k, ax in m.batch_axes().items())
+        specs = m.param_specs(Rules.make(ONE, par))
+        jspecs = jax.tree.map(tuple, jm.param_specs(JRules.make(MESH, jpar)),
+                              is_leaf=lambda x: isinstance(
+                                  x, jax.sharding.PartitionSpec))
+        assert specs == jspecs, (arch, cell)
 
 
 def test_init_without_a_device_refuses_a_host_without_a_card():
