@@ -274,6 +274,28 @@ failure:
    at phase 7's tolerance on the data's scale.  The launches of the three
    models' first serving runs and of whisper's train forward are each
    kernel's ``family_path_launches``.
+17. The dry run (`repro_torch.launch.{dryrun,hlo_stats,mesh,roofline}`),
+   the six kernels' launch counts set to 0 first.  Its grid on the card's
+   host: every cell of `DRYRUN_ARCHS` on both production meshes (16x16,
+   2x16x16) traced on ``meta`` into ``build/dryrun_torch``, in
+   `DRYRUN_WORKERS` spawned processes; every record must be ``ok`` or
+   ``skipped``, the skipped ones exactly ``long_500k`` of the archs that
+   are neither ssm nor hybrid (the reference's rule), and no kernel may
+   have launched in any worker or here (a trace on ``meta`` takes the CPU
+   route: attention is `chunked_attention`).  The two meshes' `render`
+   tables and the grid's seconds are printed.  Then three steps of phases
+   14-15, each model built from ``--seed`` on the card in bf16 and freed
+   before the next: qwen2-7b's decode at B = 4 with a 256-position cache
+   and its prefill of 1 x 4096, smollm-135m's train step at 4 x 4096
+   (``parallel_for("train_4k")``).  For each, the dry run's one-card record
+   (`make_host_mesh(1, 1)`, a `ShapeCell` at that shape) must predict the
+   step's argument bytes exactly (the parameters, the optimizer state,
+   the batch and the cache on the card); printed, not gated: the
+   predicted peak against the arguments plus ``max_memory_allocated``'s
+   growth over one call, the roofline seconds against the step's time
+   (CUDA events, median of `DRYRUN_REPS`), the useful FLOPs ratio, and
+   kernel 5's launches in one call (0, 28 and 60, as phases 14-15 read
+   them), which are each kernel's ``dryrun_path_launches``.
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -582,6 +604,19 @@ MOE_LAYER0 = dict(B=1, S=512)
 MOE_OVERFLOW = dict(B=4, S=256, scale=8.0)
 HYBRID_CUT = dict(num_layers=8, num_experts=8)
 ENCDEC_FRAMES, ENCDEC_TOKENS = 1500, 448
+#: phase 17: the dry run (`repro_torch.launch.dryrun`).  Its grid here, on
+#: the card's host, over these archs x every cell x both production meshes
+#: (the CLI's default grid is every arch), in DRYRUN_WORKERS spawned
+#: processes: llama3-405b is left to the CLI, as its train_4k trace alone
+#: takes 424-733 s on the card's host (PERF.md section 6, PR 23); then the
+#: one-card records of three steps of phases 14-15, (arch, cell, B, S),
+#: each held to the step run on the card (DRYRUN_REPS)
+DRYRUN_ARCHS = ("qwen2-7b", "smollm-135m", "qwen3-moe-30b-a3b")
+DRYRUN_WORKERS = 8
+DRYRUN_STEPS = (("qwen2-7b", "decode_32k", 4, 256),
+                ("qwen2-7b", "prefill_32k", 1, 4096),
+                ("smollm-135m", "train_4k", 4, 4096))
+DRYRUN_REPS = 3
 #: kernels redesigned for Hopper after their first port
 REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
               "flash_attention", "gla_timemix"}
@@ -2593,6 +2628,208 @@ def family_phase(seed: int, smi_line: str, dev=None) -> dict:
     return path
 
 
+def dryrun_job(job):
+    """One cell of phase 17's grid, in a spawned worker: its record (written
+    under the job's directory) and the kernel launches this worker counted,
+    which a trace on ``meta`` must leave at 0."""
+    arch, cell, multi_pod, out = job
+    src = str(ROOT / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, cell, multi_pod, Path(out), force=True)
+    return rec, {k.source.stem: k.launches for k in cuda_lib.KERNELS}
+
+
+def dryrun_phase(seed: int, smi_line: str, dev=None) -> dict:
+    """Phase 17: the dry run on the card's host and its one-card predictions
+    against the card (see the docstring), ``dev`` the card's device.
+    Returns each kernel's launches on the dry-run path: one counted call of
+    each card step.  Raises on any failed check."""
+    import multiprocessing
+    import os
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.bench import cuda_ms
+    from repro_torch.configs.base import SHAPE_CELLS, ShapeCell
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import render
+    from repro_torch.models import Rules, build
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda" if dev is None else dev)
+    rng = np.random.default_rng(seed)
+    path = {k.source.stem: 0 for k in cuda_lib.KERNELS}
+
+    def zero():
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+
+    def counted():
+        return {k.source.stem: k.launches for k in cuda_lib.KERNELS}
+
+    # ---- the grid, traced on `meta` in spawned workers
+    zero()
+    out = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    kinds = {"train": 0, "prefill": 1, "decode": 2}     # the longest first
+    jobs = sorted(((a, c, mp, str(out)) for a in DRYRUN_ARCHS
+                   for c in SHAPE_CELLS for mp in (False, True)),
+                  key=lambda j: (kinds[SHAPE_CELLS[j[1]].kind],
+                                 -configs.get(j[0]).model.num_layers))
+    workers = min(DRYRUN_WORKERS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        results = list(pool.map(dryrun_job, jobs))
+    grid_s = time.perf_counter() - t0
+    recs = sorted((r for r, _ in results),
+                  key=lambda r: (r["arch"], r["cell"], r["mesh"]))
+    bad = [(r["arch"], r["cell"], r["mesh"], r.get("error"))
+           for r in recs if r["status"] not in ("ok", "skipped")]
+    check(not bad, f"phase 17 dry run: records in error: {bad}")
+    skipped = {(r["arch"], r["cell"]) for r in recs
+               if r["status"] == "skipped"}
+    want = {(a, "long_500k") for a in DRYRUN_ARCHS
+            if configs.get(a).model.family not in ("ssm", "hybrid")}
+    check(skipped == want, f"phase 17 dry run skipped {sorted(skipped)}, "
+          f"the reference's rule {sorted(want)}")
+    traced = {k: sum(c[k] for _, c in results) for k in path}
+    check(not any(traced.values()) and not any(counted().values()),
+          f"phase 17: a trace on meta launched a kernel: workers "
+          f"{json.dumps(traced)}, here {json.dumps(counted())}")
+    for mesh in ("16x16", "2x16x16"):
+        say(f"phase 17 dry run, mesh {mesh}:\n" + render(recs, mesh))
+    slow = sorted((r for r in recs if r["status"] == "ok"),
+                  key=lambda r: -r["lower_s"])[:5]
+    say(f"phase 17 dry-run grid: {len(DRYRUN_ARCHS)} archs ("
+        f"{', '.join(DRYRUN_ARCHS)}) x {len(SHAPE_CELLS)} cells x 2 meshes ="
+        f" {len(recs)} records ({len(recs) - len(skipped) * 2} traced, "
+        f"{len(skipped) * 2} skipped) in {grid_s:.1f} s on {workers} "
+        f"spawned workers; the longest traces: " + ", ".join(
+            f"{r['arch']} {r['cell']} {r['mesh']} {r['lower_s']} s"
+            for r in slow) + "; kernel launches 0")
+
+    # ---- one-card records against the steps on the card
+    def real_bytes(*trees) -> int:
+        return sum(t.numel() * t.element_size() for tree in trees
+                   for t in tree_leaves(tree))
+
+    def tokens(B, S, vocab):
+        return torch.from_numpy(rng.integers(0, vocab, (B, S)).astype(
+            np.int32)).to(dev)
+
+    def against(arch, cell, rec, args_bytes, fn):
+        """Hold ``rec`` to the step ``fn`` on the card: argument bytes
+        (gated), then peak memory, time and kernel 5's launches
+        (printed)."""
+        mem = rec["memory"]
+        check(mem["argument_bytes"] == args_bytes,
+              f"phase 17 {arch} {cell.name} {cell.global_batch} x "
+              f"{cell.seq_len}: predicted argument bytes "
+              f"{mem['argument_bytes']}, the step's tensors {args_bytes}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        result = fn()
+        torch.cuda.synchronize()
+        growth = torch.cuda.max_memory_allocated() - base
+        launched = counted()
+        del result
+        for k, n in launched.items():
+            path[k] += n
+        ms = cuda_ms(fn, DRYRUN_REPS)
+        rf = rec["roofline"]
+        roof_ms = max(rf["compute_s"], rf["memory_s"]) * 1e3
+        added = mem["temp_bytes"] + mem["output_bytes"] - mem["alias_bytes"]
+        say(f"phase 17 {arch} {cell.kind} {cell.global_batch} x "
+            f"{cell.seq_len} ({cell.name}'s layout), one card: argument "
+            f"bytes {args_bytes} predicted exactly; peak "
+            f"{mem['peak_bytes_per_device'] / 2 ** 30:.3f} GiB predicted, "
+            f"{(args_bytes + growth) / 2 ** 30:.3f} GiB measured (the "
+            f"arguments and max_memory_allocated's growth over the step, "
+            f"{growth / 2 ** 30:.3f} GiB against {added / 2 ** 30:.3f} "
+            f"predicted: {growth / added:.3f}x), ratio "
+            f"{(args_bytes + growth) / mem['peak_bytes_per_device']:.3f}; "
+            f"roofline {roof_ms:.3f} ms ({rf['dominant']}; compute "
+            f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.3f}"
+            f" ms), the step {ms:.3f} ms (CUDA events, median of "
+            f"{DRYRUN_REPS}), {ms / roof_ms:.2f}x it; useful FLOPs ratio "
+            f"{rf['useful_flops_ratio']:.4f}; traced in {rec['lower_s']} s; "
+            f"kernel 5 launched {launched['flash_attention']} times in the "
+            f"step, others {sum(launched.values()) - launched['flash_attention']}"
+            f"; {smi_line}")
+        check(not any(n for k, n in launched.items()
+                      if k != "flash_attention"),
+              f"phase 17 {arch} {cell.name}: {json.dumps(launched)}")
+        return launched["flash_attention"]
+
+    one = make_host_mesh(1, 1)
+    k5 = {}
+    params, params_of = None, None      # a model's weights, kept for its
+    for arch, cell_name, B, S in DRYRUN_STEPS:     # next serving step
+        cell = ShapeCell(cell_name, S, B, SHAPE_CELLS[cell_name].kind)
+        zero()
+        rec = dryrun.cell_record(arch, cell, one)
+        check(not any(counted().values()), f"phase 17: the one-card trace "
+              f"of {arch} {cell_name} launched {json.dumps(counted())}")
+        bundle = configs.get(arch)
+        par = bundle.parallel_for(cell_name, multi_pod=False)
+        model = build(bundle.model, par)
+        rules = Rules.make(one, par)
+        vocab = model.cfg.vocab_size
+        if params_of != (arch if cell.kind != "train" else None):
+            params, params_of = None, None
+            torch.cuda.empty_cache()
+        if cell.kind == "train":
+            state = init_train_state(model, seed, dev)
+            batch = {"tokens": tokens(B, S, vocab)}
+            step = make_train_step(model, rules).step_fn
+            k5[cell.kind] = against(arch, cell, rec, real_bytes(state, batch),
+                                    lambda: step(state, batch))
+            del state
+        else:
+            if params is None:
+                params, params_of = model.init(seed, dev), arch
+            cache = model.init_cache(B, S, dev)
+            if cell.kind == "decode":
+                batch = {"tokens": tokens(B, 1, vocab),
+                         "pos": torch.full((), S // 2, dtype=torch.int32,
+                                           device=dev)}
+                fn = (lambda: model.decode_fn(params, batch, cache, rules))
+            else:
+                batch = {"tokens": tokens(B, S, vocab)}
+                fn = (lambda: model.prefill_fn(params, batch, rules, cache))
+
+            def no_grad(fn=fn):
+                with torch.no_grad():
+                    return fn()
+
+            k5[cell.kind] = against(arch, cell, rec,
+                                    real_bytes(params, batch, cache), no_grad)
+            del cache
+    del model, params
+    torch.cuda.empty_cache()
+    check(k5 == {"decode": 0, "prefill": 28, "train": 60},
+          f"phase 17: kernel 5's launches a step {k5}, phases 14-15 read "
+          f"decode 0, prefill 28 and train 60")
+    say(f"phase 17 kernel launches on the dry-run path (one counted call "
+        f"of each card step): {json.dumps(path)}")
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3458,6 +3695,14 @@ def main() -> int:
         row["family_path_launches"] = family_launches[
             row["name"].split("[")[0]]
     say(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------- phase 17 --
+    t0 = time.perf_counter()
+    dryrun_launches = dryrun_phase(args.seed, smi_line)
+    for row in rows:
+        row["dryrun_path_launches"] = dryrun_launches[
+            row["name"].split("[")[0]]
+    say(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     say(smi_line)

@@ -1,5 +1,14 @@
-"""The DSE design-point cost predictor on one H100, and the roofline cache
-loader.
+"""Roofline models on one H100: the dry-run report CLI and the DSE
+design-point cost predictor, and the roofline cache loader.
+
+CLI (renders the dry-run cache's tables, `repro_torch.launch.dryrun`)::
+
+    PYTHONPATH=src python -m repro_torch.launch.roofline
+        [--cache results/dryrun_torch] [--markdown]
+
+`render` is the reference's table; a term the port's dry run records as
+null (the collectives on a mesh of more than one card, ``compile_s``) is an
+empty cell.
 
 `predict_report_cost` is the analytic half of the DSE Pareto frontier
 (`repro_torch.dse`): given one design point's `AnalysisReport` it prices the
@@ -14,16 +23,17 @@ the DSE pairs it with measured generated-kernel time
 (`repro_torch.runtime.cuda_backend.measure_compiled`).
 
 The rates are the card's (`repro_torch.device`): device memory at
-`HBM_BW`, shared memory at `SMEM_BW`, and the arithmetic at
+`HBM_BW`, shared memory at `SMEM_BW`, and the design points' arithmetic at
 `PEAK_FLOPS_FP32`, since the ring kernels compute in float32 on the CUDA
-cores, not on the tensor cores.
+cores, not on the tensor cores; the dry run's at `PEAK_FLOPS_BF16`.
 """
+import argparse
 import json
 import pathlib
 import warnings
 from typing import Any, Dict, List, Mapping, Tuple
 
-from ..device import HBM_BW, PEAK_FLOPS_FP32, SMEM_BW
+from ..device import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_FP32, SMEM_BW
 
 #: bytes per streamed token (the analyses carry f32 channel values)
 TOKEN_BYTES = 4
@@ -46,6 +56,45 @@ def load(cache: pathlib.Path) -> Tuple[List[Dict], List[str]]:
             warnings.warn(f"roofline: skipping unreadable cache record "
                           f"{f}: {type(e).__name__}: {e}")
     return out, skipped
+
+
+def _sci(x) -> str:
+    return "" if x is None else f"{x:.3e}"
+
+
+def render(recs: List[Dict], mesh: str, markdown: bool = False) -> str:
+    rows = []
+    for r in recs:
+        if r.get("mesh") != mesh:
+            continue
+        if r.get("status") == "skipped":
+            rows.append((r["arch"], r["cell"], "SKIP", "", "", "", "", "", ""))
+            continue
+        if r.get("status") != "ok":
+            rows.append((r["arch"], r["cell"], "ERR", "", "", "", "", "",
+                         r.get("error", "")[:40]))
+            continue
+        rf = r["roofline"]
+        uf = rf.get("useful_flops_ratio")
+        compile_s = r.get("compile_s", "")
+        rows.append((
+            r["arch"], r["cell"], rf["dominant"],
+            _sci(rf["compute_s"]), _sci(rf["memory_s"]),
+            _sci(rf["collective_s"]),
+            f"{r['memory']['peak_bytes_per_device']/2**30:.2f}",
+            f"{uf:.3f}" if uf else "",
+            "" if compile_s is None else f"{compile_s}s"))
+    hdr = ("arch", "cell", "dominant", "compute_s", "memory_s",
+           "collective_s", "HBM_GiB", "useful", "compile")
+    if markdown:
+        lines = ["| " + " | ".join(hdr) + " |",
+                 "|" + "---|" * len(hdr)]
+        lines += ["| " + " | ".join(str(c) for c in row) + " |" for row in rows]
+        return "\n".join(lines)
+    w = [22, 12, 10, 11, 11, 12, 8, 7, 8]
+    lines = [" ".join(h.ljust(x) for h, x in zip(hdr, w))]
+    lines += [" ".join(str(c).ljust(x) for c, x in zip(row, w)) for row in rows]
+    return "\n".join(lines)
 
 
 def predict_report_cost(report: Mapping[str, Any]) -> Dict[str, float]:
@@ -79,3 +128,25 @@ def predict_report_cost(report: Mapping[str, Any]) -> Dict[str, float]:
             "hbm_bytes": float(hbm), "smem_bytes": float(smem),
             "predicted_s": max(compute_s, memory_s),
             "dominant": "compute" if compute_s >= memory_s else "memory"}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cache", default="results/dryrun_torch")
+    ap.add_argument("--markdown", action="store_true")
+    args = ap.parse_args()
+    recs, skipped = load(pathlib.Path(args.cache))
+    for mesh in ("16x16", "2x16x16"):
+        print(f"### mesh {mesh} "
+              f"(cards={'512' if mesh == '2x16x16' else '256'}, "
+              f"H100 SXM: {PEAK_FLOPS_BF16/1e12:.0f} TF/s bf16, "
+              f"{HBM_BW/1e9:.0f} GB/s HBM; collectives not modelled)")
+        print(render(recs, mesh, args.markdown))
+        print()
+    if skipped:
+        print(f"skipped {len(skipped)} unreadable cache record(s): "
+              + ", ".join(skipped))
+
+
+if __name__ == "__main__":
+    main()

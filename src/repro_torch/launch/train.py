@@ -7,8 +7,9 @@ The port of `repro.launch.train`, with its flags and ``--device``.  Without
 ``--reduced`` it trains the full config's ``train_4k`` layout on the one
 card; ``--reduced`` trains the smoke-sized config with two microbatches and
 float32 moments, as the reference does on its CPU container.  The
-reference's ``--distributed`` joins a multi-host JAX job; the port has no
-multi-card mesh yet, so the flag raises `NotImplementedError`.
+reference's ``--distributed`` joins a multi-host JAX job; the port runs a
+model on one card (sharded execution across cards is not ported: see
+`repro_torch.launch.dryrun`), so the flag raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -45,9 +46,10 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     if args.distributed:
         raise NotImplementedError(
-            "--distributed: the port has no multi-card mesh yet; it waits "
-            "for launch/mesh.py and the dry run (ROADMAP.md, queue 1, "
-            "item 3)")
+            "--distributed: the port runs a model on one card; sharded "
+            "execution across cards (torch.distributed.tensor over a "
+            "multi-card mesh) is the remaining gap of the launch slice, "
+            "waiting for a machine with more than one card (ROADMAP.md)")
 
     bundle = configs.get(args.arch)
     cfg = reduce_cfg(bundle.model) if args.reduced else bundle.model

@@ -97,10 +97,24 @@ def _normal(gen: torch.Generator, shape, std: float, out: torch.Tensor
         part.copy_(draw.mul_(std))
 
 
+def leaf_seed(seed: int, path: str, device_type: str) -> int:
+    """The seed of one leaf's generator, from ``seed`` and the leaf's tree
+    path.  The CPU generator keeps only the low 32 bits of its seed, so
+    there both are folded into 32 bits, ``zlib.crc32`` of the path
+    continued from the crc of the seed's digits: every seed draws other
+    parameters.  A CUDA generator (Philox) takes all 64 bits of
+    ``seed · 2**31 + crc32(path) mod 2**31``, which is kept as it is: the
+    card's draws, on which `chip_smoke.py`'s loss gate was calibrated, do
+    not change."""
+    if device_type == "cpu":
+        return zlib.crc32(path.encode(), zlib.crc32(str(int(seed)).encode()))
+    return int(seed) * 2 ** 31 + zlib.crc32(path.encode()) % (2 ** 31)
+
+
 def init_params(seed: int, plan, device=None):
     """Deterministic init on ``device`` (the card where None): every leaf
-    drawn by its own `torch.Generator` on the device, seeded from ``seed``
-    and ``zlib.crc32`` of the leaf's tree path, spelt as
+    drawn by its own `torch.Generator` on the device, seeded by `leaf_seed`
+    from ``seed`` and ``zlib.crc32`` of the leaf's tree path, spelt as
     ``jax.tree_util.keystr`` spells it (``['layers']['attn']['wq']``; a
     stable hash — Python's hash() is per-process randomized), with std =
     scale / sqrt(fan_in).  The card's generator draws other numbers than the
@@ -115,8 +129,7 @@ def init_params(seed: int, plan, device=None):
         if p.init == "ones":
             return torch.ones(p.shape, dtype=p.dtype, device=dev)
         gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed) * 2 ** 31
-                        + zlib.crc32(path.encode()) % (2 ** 31))
+        gen.manual_seed(leaf_seed(seed, path, dev.type))
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         leaf = torch.empty(p.shape, dtype=p.dtype, device=dev)
         _normal(gen, p.shape, p.scale / float(np.sqrt(max(fan_in, 1))), leaf)

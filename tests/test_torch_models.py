@@ -31,10 +31,12 @@ is jitted once per (arch, mode) in a module-scoped fixture.
    registered arch, with the reference's parameter, cache and spec plans
    (the moe, hybrid and encoder-decoder families are held to the reference
    in `tests/test_torch_families.py`); `Model.init` without a device
-   refuses a host with no card.
+   refuses a host with no card; on the CPU every seed draws other
+   parameters, and the seed a CUDA generator gets is unchanged.
 """
 import dataclasses
 import math
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -414,6 +416,29 @@ def test_init_without_a_device_refuses_a_host_without_a_card():
         m.init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         m.init_cache(1, 8)
+
+
+def test_cpu_init_draws_other_parameters_for_every_seed():
+    """Reduced jamba-1.5-large-398b on the CPU: seeds 1, 3 and 5 draw three
+    different parameter sets (the CPU generator keeps 32 bits of its seed,
+    and a seed of ``seed · 2**31 + …`` drew one set for every odd seed),
+    one seed draws the same set twice, and the seed a CUDA generator
+    receives is what it was."""
+    from repro_torch.models.common import leaf_seed
+
+    m, _ = _port("jamba-1.5-large-398b")
+    draws = {s: m.init(s, "cpu") for s in (1, 3, 5)}
+    for a, b in ((1, 3), (1, 5), (3, 5)):
+        assert any(not torch.equal(x, y) for x, y in zip(
+            tree_leaves(draws[a]), tree_leaves(draws[b]))), (a, b)
+    assert all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(draws[3]), tree_leaves(m.init(3, "cpu"))))
+    path = "['layers']['attn']['wq']"
+    for seed in (0, 1, 3, 2 ** 20 + 7):
+        assert leaf_seed(seed, path, "cuda") == (
+            seed * 2 ** 31 + zlib.crc32(path.encode()) % 2 ** 31)
+        assert 0 <= leaf_seed(seed, path, "cpu") < 2 ** 32
+    assert len({leaf_seed(s, path, "cpu") for s in range(64)}) == 64
 
 
 def test_unit_fan_in_rescales_the_projections(monkeypatch):

@@ -509,7 +509,8 @@ def test_launcher_trains_reduced_and_refuses_distributed(tmp_path, capsys):
     main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "2", "--ckpt",
           str(tmp_path), "--device", "cpu"])
     assert "steps=2 " in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError,
+                       match="sharded execution across cards"):
         main(["--arch", "smollm-135m", "--distributed", "--device", "cpu"])
 
 
