@@ -296,6 +296,34 @@ failure:
    (CUDA events, median of `DRYRUN_REPS`), the useful FLOPs ratio, and
    kernel 5's launches in one call (0, 28 and 60, as phases 14-15 read
    them), which are each kernel's ``dryrun_path_launches``.
+18. The sharded path (`Rules` on a `DeviceMesh`, every tensor a DTensor,
+   kernels 5 and 6 under `local_map` on each rank's block) at world size 1:
+   a one-rank NCCL group and a 1x1 ``("data", "model")`` mesh on the card.
+   qwen2-7b at full width and depth (``parallel_for("decode_32k")``, as
+   phase 14) serves phase 14's 8 requests through ``serve(…, mesh=)``, and
+   every request's tokens must equal phase 14's one-device run; kernel 5
+   must launch 28 times a prefill call there and nothing else launch.  Its
+   prefill of 1 x 4096 and its decode step at B = 4 (a 256-position cache)
+   are timed on both paths in turns (one-device, mesh, mesh, one-device;
+   CUDA events, medians) and printed beside each other with the card's
+   name and power limit; the mesh prefill's logits must sit within
+   `PAIR_REL` of the one-device prefill's largest logit, the decode step's
+   greedy tokens must be equal, kernel 5 must launch 28 times in a mesh
+   prefill, and the one-device outputs must be plain tensors (no DTensor on
+   that path); three mesh decode steps under `torch.profiler` give
+   DTensor's dispatches a step and their host time.  Then smollm-135m's train step at 4 x 4096 (``train_4k``,
+   TF32 off) from the same state and tokens on both paths: the mesh loss
+   within `TRAIN_GRAD_REL` of the one-device loss, kernel 5 launched 60
+   times a step, both steps timed.  With two or more cards, a 1x2
+   (``model``) serve of the same requests and a 2x1 (``data``) train step
+   over NCCL, a rank a card (`mesh_serve_rank`, `mesh_train_rank`), held
+   to the one-card tokens and loss; on one card a line says they were not
+   run.  Before the train step, rwkv6-1.6b's train forward at S = 4096 in
+   float32 (projections at unit fan-in, as phase 14) on both paths: kernel
+   6 must launch 24 times under `local_map` and the logits sit within
+   `RWKV_TM_REL` of the one-device path's largest.  Each kernel's
+   ``mesh_path_launches`` counts the mesh serve, prefill, rwkv forward and
+   train step above.
 
 Tolerances.  The kernels compute the same float32 operations in the same
 order as the plain versions and the oracles (built with -fmad=false, so no
@@ -617,6 +645,9 @@ DRYRUN_STEPS = (("qwen2-7b", "decode_32k", 4, 256),
                 ("qwen2-7b", "prefill_32k", 1, 4096),
                 ("smollm-135m", "train_4k", 4, 4096))
 DRYRUN_REPS = 3
+#: phase 18: the sharded path on a 1x1 DeviceMesh (the serve of phase 14's
+#: requests, its prefill and decode timed, smollm-135m's train step)
+MESH_TRAIN_REPS = 2
 #: kernels redesigned for Hopper after their first port
 REDESIGNED = {"ring_stencil", "addressable_step", "replay", "stencil_fifo",
               "flash_attention", "gla_timemix"}
@@ -1503,6 +1534,7 @@ def model_phase(seed: int, smi_line: str, attn_device_ms: float,
             for k, n in launched.items():
                 path[k] += n
             outputs = {r.rid: list(r.generated) for r in done}
+            PHASE14["outputs"] = outputs
         else:
             check({r.rid: r.generated for r in done} == outputs,
                   "phase 14: the second run served other tokens")
@@ -2830,6 +2862,320 @@ def dryrun_phase(seed: int, smi_line: str, dev=None) -> dict:
     return path
 
 
+#: what phase 14 served, for phase 18 to hold the sharded path to
+PHASE14: dict = {}
+
+
+def _mesh_model(arch: str, cell: str):
+    from repro_torch import configs
+    from repro_torch.models import build
+    bundle = configs.get(arch)
+    return build(bundle.model, bundle.parallel_for(cell, multi_pod=False))
+
+
+def mesh_serve_rank(rank: int, seed: int, sizes: str, out_dir: str) -> None:
+    """One rank of phase 18's multi-card serve (spawned by `run_ranks`
+    under NCCL, card ``rank``): qwen2-7b serves the phase's requests on the
+    mesh of axis ``sizes`` (JSON); the tokens go to ``rank<r>.json``."""
+    import torch
+
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.launch.serve import draw_requests, serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _mesh_model(MODEL_ARCH, "decode_32k")
+    dev = torch.device("cuda", rank)
+    params = model.init(seed, dev)
+    reqs = draw_requests(SERVE["requests"], model.cfg.vocab_size,
+                         SERVE["max_new"], seed)
+    done, _ = serve(model, params, reqs, SERVE["slots"], SERVE["max_seq"],
+                    dev, device_mesh(json.loads(sizes), "cuda"))
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(
+        {str(r.rid): list(map(int, r.generated)) for r in done}))
+
+
+def mesh_train_rank(rank: int, seed: int, sizes: str, out_dir: str) -> None:
+    """One rank of phase 18's multi-card train step (as `mesh_serve_rank`):
+    smollm-135m's step at `TRAIN_STEP` from the seed's state and tokens on
+    the mesh of axis ``sizes``; the loss goes to ``rank<r>.json``."""
+    import torch
+
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import Rules
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _mesh_model(TRAIN_ARCH, "train_4k")
+    dev = torch.device("cuda", rank)
+    rules = Rules.make(device_mesh(json.loads(sizes), "cuda"), model.par)
+    toks = _mesh_tokens(seed, model.cfg.vocab_size).to(dev)
+    _, met = make_train_step(model, rules, lr=TRAIN_LR).step_fn(
+        init_train_state(model, seed, dev, rules),
+        {"tokens": rules.distribute(toks, ("batch", "seq"))})
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(
+        {"loss": float(met["loss"].full_tensor())}))
+
+
+def _f32(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda a: a.float() if a.is_floating_point() else a, tree)
+
+
+def _mesh_tokens(seed: int, vocab: int):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed + 18).integers(
+        0, vocab, (TRAIN_STEP["B"], TRAIN_STEP["S"])).astype(np.int32))
+
+
+def mesh_phase(seed: int, smi_line: str, dev=None) -> dict:
+    """Phase 18: the sharded path at world size 1 on the card (see the
+    docstring), ``dev`` the card's device.  Returns each kernel's launches
+    on the mesh path (the serve, one prefill and one train step), counted
+    from 0.  Raises on any failed check."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.bench import cuda_ms
+    from repro_torch.comm import run_ranks
+    from repro_torch.comm.group import _free_port
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.launch.serve import MESH, draw_requests, serve
+    from repro_torch.models import Rules
+    from repro_torch.models.sharding import is_dtensor
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 18 runs with TF32 off")
+    dev = torch.device("cuda" if dev is None else dev)
+    path = {k.source.stem: 0 for k in cuda_lib.KERNELS}
+
+    def zero():
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+
+    def counted():
+        return {k.source.stem: k.launches for k in cuda_lib.KERNELS}
+
+    def only_attention(launched, n, what):
+        check(launched["flash_attention"] == n and not any(
+            c for k, c in launched.items() if k != "flash_attention"),
+            f"phase 18 {what}: {json.dumps(launched)}, expected {n} "
+            f"launches of kernel 5 alone")
+        for k, c in launched.items():
+            path[k] += c
+
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = device_mesh(MESH, "cuda")
+        say(f"phase 18: a one-rank NCCL group, DeviceMesh {mesh}")
+
+        # ---- qwen2-7b served through the mesh path
+        model = _mesh_model(MODEL_ARCH, "decode_32k")
+        cfg = model.cfg
+        one = Rules.make(MESH, model.par)
+        rules = Rules.make(mesh, model.par)
+        params = model.init(seed, dev)
+        dparams = model.distribute(params, rules)
+        reqs = draw_requests(SERVE["requests"], cfg.vocab_size,
+                             SERVE["max_new"], seed)
+        zero()
+        done, c = serve(model, dparams, reqs, SERVE["slots"],
+                        SERVE["max_seq"], dev, mesh)
+        only_attention(counted(), cfg.num_layers * c["prefills"], "serve")
+        got = {r.rid: list(r.generated) for r in done}
+        check(got == PHASE14["outputs"], f"phase 18 serve: the mesh path "
+              f"served other tokens than phase 14's one-device path")
+        served = sum(len(t) for t in got.values())
+        say(f"phase 18 serve {MODEL_ARCH} on the 1x1 mesh: {len(done)} "
+            f"requests, {served} tokens, each request's tokens equal to "
+            f"phase 14's; {c['seconds']:.4f} s host clock, "
+            f"{served / c['seconds']:.2f} tokens/s, {c['steps']} decode "
+            f"steps, kernel 5 launched {cfg.num_layers} x {c['prefills']} "
+            f"prefill calls; {smi_line}")
+
+        # ---- the prefill of 1 x 4096 and a decode step, both paths
+        S = MODEL_PREFILL_S
+        toks = _mesh_tokens(seed, cfg.vocab_size)[:1, :S].to(dev)
+        dtoks = rules.distribute(toks, ("batch", "seq"))
+        caches = {"one": model.init_cache(1, S, dev),
+                  "mesh": model.init_cache(1, S, dev, rules)}
+        runs = {"one": (params, one, toks), "mesh": (dparams, rules, dtoks)}
+
+        def prefill(name):
+            p, r, t = runs[name]
+            return model.prefill_fn(p, {"tokens": t}, r, caches[name])[0]
+
+        with torch.no_grad():
+            zero()
+            logits = prefill("mesh")
+            only_attention(counted(), cfg.num_layers, "prefill")
+            want = prefill("one")
+            check(not is_dtensor(want) and is_dtensor(logits),
+                  "phase 18: the one-device path made a DTensor, or the "
+                  "mesh path a plain tensor")
+            err = float((logits.full_tensor().float() - want.float()).abs()
+                        .max() / want.float().abs().max())
+            check(err <= PAIR_REL, f"phase 18 prefill logits: {err} of the "
+                  f"largest against the one-device path")
+            pre = {}
+            for name in ("one", "mesh", "mesh", "one"):
+                pre.setdefault(name, []).append(cuda_ms(
+                    lambda: prefill(name), MODEL_REPS))
+        del caches
+        B = SERVE["slots"]
+        btoks = _mesh_tokens(seed + 1, cfg.vocab_size)[:B, :1].to(dev)
+        caches = {"one": model.init_cache(B, SERVE["max_seq"], dev),
+                  "mesh": model.init_cache(B, SERVE["max_seq"], dev, rules)}
+        runs = {"one": (params, one, btoks),
+                "mesh": (dparams, rules, rules.distribute(
+                    btoks, ("batch", "seq")))}
+
+        def decode(name):
+            p, r, t = runs[name]
+            return model.decode_fn(p, {"tokens": t,
+                                       "pos": SERVE["max_seq"] // 2},
+                                   caches[name], r)[0]
+
+        with torch.no_grad():
+            a = torch.argmax(decode("one")[:, 0], -1)
+            b = torch.argmax(decode("mesh").full_tensor()[:, 0], -1)
+            check(torch.equal(a, b), f"phase 18 decode: tokens {b.tolist()}"
+                  f" on the mesh, {a.tolist()} on one device")
+            dec = {}
+            for name in ("one", "mesh", "mesh", "one"):
+                dec.setdefault(name, []).append(cuda_ms(
+                    lambda: decode(name), DECODE_REPS))
+            # the host's work DTensor adds: its dispatches a step and their
+            # own host time (torch.profiler's "PythonSubclass" rows)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU]) as prof:
+                for _ in range(3):
+                    decode("mesh")
+                torch.cuda.synchronize()
+        events = prof.key_averages()
+        sub = [e for e in events if e.key == "PythonSubclass"]
+        sub_ms = sum(e.self_cpu_time_total for e in sub) / 3e3
+        host_ms = sum(e.self_cpu_time_total for e in events) / 3e3
+        dispatch = (f"{sum(e.count for e in sub) / 3:.0f} DTensor dispatches "
+                    f"a mesh decode step, {sub_ms:.3f} ms of host self time "
+                    f"a step in them of {host_ms:.3f} in all (torch.profiler)"
+                    if sub else "DTensor dispatch not measured (the "
+                    "profiler recorded no PythonSubclass row)")
+        say(f"phase 18 {MODEL_ARCH} prefill 1 x {S}, bf16: one device "
+            f"{pre['one']} ms, mesh {pre['mesh']} ms (CUDA events, medians "
+            f"of {MODEL_REPS}, in turns); logits {err:.3g} of the largest "
+            f"apart; decode step B = {B}, cache {SERVE['max_seq']}: one "
+            f"device {dec['one']} ms, mesh {dec['mesh']} ms (medians of "
+            f"{DECODE_REPS}), the same greedy tokens; {dispatch}; "
+            f"{smi_line}")
+        del caches, runs, dparams, params, model
+        torch.cuda.empty_cache()
+
+        # ---- rwkv6-1.6b's train forward (kernel 6), both paths, float32
+        model = _mesh_model(RWKV_ARCH, "decode_32k")
+        rules = Rules.make(mesh, model.par)
+        params = _f32(model.init(seed, dev))
+        unit_fan_in(params["layers"])
+        rtoks = _mesh_tokens(seed + 2, model.cfg.vocab_size)[:1].to(dev)
+        with torch.no_grad():
+            want = model.forward(params, {"tokens": rtoks},
+                                 Rules.make(MESH, model.par), "train")[0]
+            zero()
+            got = model.forward(model.distribute(params, rules), {
+                "tokens": rules.distribute(rtoks, ("batch", "seq"))},
+                rules, "train")[0]
+            launched = counted()
+        rerr = float((got.full_tensor() - want).abs().max()
+                     / want.abs().max())
+        check(launched["gla_timemix"] == model.cfg.num_layers
+              and rerr <= RWKV_TM_REL, f"phase 18 {RWKV_ARCH} train forward "
+              f"on the mesh: {json.dumps(launched)}, {rerr} of the largest "
+              f"logit from the one-device path")
+        for k, n in launched.items():
+            path[k] += n
+        say(f"phase 18 {RWKV_ARCH} train forward, S = {rtoks.shape[1]}, "
+            f"float32, projections at unit fan-in: kernel 6 launched "
+            f"{launched['gla_timemix']} times under local_map, logits "
+            f"{rerr:.3g} of the largest from the one-device path")
+        del params, got, want, model
+        torch.cuda.empty_cache()
+
+        # ---- smollm-135m's train step at 4 x 4096, both paths
+        model = _mesh_model(TRAIN_ARCH, "train_4k")
+        toks = _mesh_tokens(seed, model.cfg.vocab_size).to(dev)
+        steps, losses = {}, {}
+        for name, r in (("one", Rules.make(MESH, model.par)),
+                        ("mesh", Rules.make(mesh, model.par))):
+            step_fn = make_train_step(model, r, lr=TRAIN_LR).step_fn
+            state = init_train_state(model, seed, dev,
+                                     r if r.on_mesh else None)
+            batch = {"tokens": r.distribute(toks, ("batch", "seq"))}
+            zero()
+            _, met = step_fn(state, batch)
+            launched = counted()
+            loss = met["loss"]
+            losses[name] = float(loss.full_tensor() if is_dtensor(loss)
+                                 else loss)
+            if name == "mesh":
+                only_attention(launched, 2 * model.cfg.num_layers
+                               * model.par.num_microbatches, "train step")
+            steps[name] = cuda_ms(lambda: step_fn(state, batch),
+                                  MESH_TRAIN_REPS)
+            del state
+            torch.cuda.empty_cache()
+        rel = abs(losses["mesh"] - losses["one"]) / abs(losses["one"])
+        check(math.isfinite(losses["mesh"]) and rel <= TRAIN_GRAD_REL,
+              f"phase 18 train step: loss {losses['mesh']} on the mesh, "
+              f"{losses['one']} on one device")
+        say(f"phase 18 {TRAIN_ARCH} train step, B = {TRAIN_STEP['B']}, S = "
+            f"{TRAIN_STEP['S']}, bf16: loss {losses['mesh']:.6f} on the mesh,"
+            f" {losses['one']:.6f} on one device ({rel:.3g} apart); one "
+            f"device {steps['one']:.2f} ms, mesh {steps['mesh']:.2f} ms "
+            f"(CUDA events, medians of {MESH_TRAIN_REPS} after a warm-up); "
+            f"{smi_line}")
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- across cards, where the machine has them
+    count = torch.cuda.device_count()
+    if count < 2:
+        say(f"phase 18 NCCL across cards: not run, the machine has {count} "
+            f"card (a 1x2 serve and a 2x1 train step need two)")
+        return path
+    work = ROOT / "build" / "mesh_ranks"
+    for fn, sizes in ((mesh_serve_rank, {"data": 1, "model": 2}),
+                      (mesh_train_rank, {"data": 2, "model": 1})):
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        run_ranks(fn, 2, args=(seed, json.dumps(sizes), str(work)),
+                  backend="nccl", timeout=900)
+        outs = [json.loads((work / f"rank{r}.json").read_text())
+                for r in range(2)]
+        if fn is mesh_serve_rank:
+            want = {str(k): v for k, v in PHASE14["outputs"].items()}
+            check(all(o == want for o in outs), "phase 18 NCCL serve on "
+                  f"{sizes}: other tokens than the one-card run")
+            say(f"phase 18 NCCL serve {MODEL_ARCH} on {sizes}, 2 cards: "
+                f"every rank served the one-card tokens; {smi_line}")
+        else:
+            rel = max(abs(o["loss"] - losses["one"]) for o in outs) \
+                / abs(losses["one"])
+            check(rel <= TRAIN_GRAD_REL, f"phase 18 NCCL train step on "
+                  f"{sizes}: losses {outs} against {losses['one']}")
+            say(f"phase 18 NCCL train step {TRAIN_ARCH} on {sizes}, 2 "
+                f"cards: loss {outs[0]['loss']:.6f}, {rel:.3g} from the "
+                f"one-card loss; {smi_line}")
+    shutil.rmtree(work, ignore_errors=True)
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3703,6 +4049,13 @@ def main() -> int:
         row["dryrun_path_launches"] = dryrun_launches[
             row["name"].split("[")[0]]
     say(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------- phase 18 --
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(args.seed, smi_line)
+    for row in rows:
+        row["mesh_path_launches"] = mesh_launches[row["name"].split("[")[0]]
+    say(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     say(smi_line)

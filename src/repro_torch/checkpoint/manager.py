@@ -14,7 +14,14 @@ position: the reference flattens dicts in sorted key order and the port in
 insertion order, and either package restores the other's checkpoints.  bf16
 leaves are stored as raw bytes (npz has no bf16), their true dtype and shape
 in ``meta.json``.  The reference restores onto a new mesh through
-``shardings``; the port restores onto a ``device``.
+``shardings``; the port restores onto a ``device``, or, given ``mesh`` and
+a tree of DTensor ``placements``, onto that mesh: each rank reads the whole
+arrays and keeps its blocks, so a checkpoint saved on one mesh restores on
+any other (another shape, or one device).
+
+A tree of DTensors (the sharded train state) is saved whole: every rank
+joins the gathers of its leaves (``full_tensor``), rank 0 alone writes, and
+the other ranks wait on a barrier until the write is published, in `wait`.
 
 Saves run on a background thread (async checkpointing): `save` copies every
 leaf to host memory on the caller's thread, with a synchronous copy, before
@@ -33,7 +40,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tree import tree_items, tree_map_with_path
+from ..models.sharding import is_dtensor
+from ..tree import tree_items, tree_leaves, tree_map_with_path
 
 #: torch dtype → the numpy dtype name the reference writes into meta.json
 _NAMES = {torch.float32: "float32", torch.float64: "float64",
@@ -45,6 +53,8 @@ _NAMES = {torch.float32: "float32", torch.float64: "float64",
 def _host(leaf) -> np.ndarray:
     """A leaf as a numpy array of its own (a tensor copied off its device
     now, synchronously); bf16 as its raw bytes."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -76,6 +86,7 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False           # ranks of a mesh save to meet
         self.swept = self._sweep_orphans()
 
     def _sweep_orphans(self) -> List[str]:
@@ -94,6 +105,13 @@ class CheckpointManager:
         self.wait()                     # one outstanding save at a time
         flat = [(k, _host(leaf), _dtype_name(leaf), list(np.shape(leaf)))
                 for k, leaf in tree_items(tree)]
+        if any(is_dtensor(leaf) for leaf in tree_leaves(tree)):
+            import torch.distributed as dist
+            self._barrier = True
+            if dist.get_rank() != 0:
+                if blocking:
+                    self.wait()
+                return
 
         def _write():
             try:
@@ -127,6 +145,10 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -145,12 +167,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int], like_tree,
-                device=None) -> Tuple[Any, Dict]:
+    def restore(self, step: Optional[int], like_tree, device=None,
+                mesh=None, placements=None) -> Tuple[Any, Dict]:
         """Restore into the structure of `like_tree` (tensors of any device,
         ``meta`` ones included, or arrays: only its keys are read), each
         leaf in its saved dtype, on ``device``, or where None on the device
-        of the matching leaf of `like_tree` (the CPU for a non-tensor)."""
+        of the matching leaf of `like_tree` (the CPU for a non-tensor).
+        Given a DeviceMesh ``mesh`` and ``placements`` (a tree like
+        `like_tree` of DTensor placements), each leaf becomes a DTensor laid
+        out by its placements on ``mesh``, on ``device``."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -167,6 +192,7 @@ class CheckpointManager:
                                     f"under {self.root}")
         meta = json.loads((d / "meta.json").read_text())
         keys = {k: i for i, k in enumerate(meta["keys"])}
+        pl = dict(tree_items(placements)) if placements is not None else {}
         with np.load(d / "arrays.npz") as data:
             def one(path, ref):
                 if path not in keys:
@@ -176,6 +202,10 @@ class CheckpointManager:
                             tuple(meta["shapes"][i]))
                 where = device if device is not None else (
                     ref.device if isinstance(ref, torch.Tensor) else "cpu")
+                if mesh is not None:
+                    from torch.distributed.tensor import distribute_tensor
+                    return distribute_tensor(t.to(where), mesh, pl[path],
+                                             src_data_rank=None)
                 return t.to(where)
 
             out = tree_map_with_path(one, like_tree)

@@ -1,4 +1,4 @@
-"""Deterministic, resumable data pipeline on one device.
+"""Deterministic, resumable data pipeline, on one device or a device mesh.
 
 The port of `repro.data.pipeline`.  Synthetic token streams are generated
 statelessly from (seed, step, position) via a splitmix-style integer hash,
@@ -10,7 +10,12 @@ A file-backed source (memory-mapped token file) is provided for real data.
 A background prefetch thread overlaps host generation with device compute.
 The reference places each batch on its mesh with a `PartitionSpec`; the port
 copies it to one device (``torch.Tensor.to``, from a fresh host array every
-step, so no host buffer is reused while a copy may still read it).
+step, so no host buffer is reused while a copy may still read it), or,
+given rules on a DeviceMesh, lays it out by ``("batch", "seq")`` (the
+reference's ``batch_spec``; other features with their trailing dimensions
+whole): every rank makes the same global batch from the same seeds and
+copies only its own block to its device, which becomes its shard of a
+DTensor (``DTensor.from_local``).
 
 Setting ``step`` (as the trainer's crash replay does) rewinds the stream:
 batches the thread queued for the old position are dropped, so the next
@@ -67,8 +72,11 @@ class DataPipeline:
     def __init__(self, device, *, batch: int, seq: int, vocab: int,
                  seed: int = 0, start_step: int = 0,
                  source: Optional[FileSource] = None, prefetch: int = 2,
-                 extra: Optional[Dict] = None):
+                 extra: Optional[Dict] = None, rules=None):
         self.device = torch.device(device)
+        self.rules = rules if rules is not None and rules.on_mesh else None
+        if self.rules is not None:
+            self.spec = self.rules.spec((batch, seq), ("batch", "seq"))
         self.batch, self.seq, self.vocab, self.seed = batch, seq, vocab, seed
         self.source = source
         self.extra = extra or {}
@@ -143,6 +151,10 @@ class DataPipeline:
                 if epoch == self._epoch:
                     self._step = step + 1
                     break
+        if self.rules is not None:
+            return {k: self.rules.distribute_spec(
+                torch.from_numpy(v), (self.spec + (None,) * v.ndim)[:v.ndim],
+                self.device) for k, v in host.items()}
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in host.items()}
 

@@ -8,10 +8,12 @@ into an incremental JSON cache.
 
 The counterpart of `repro.launch.dryrun`, which lowers and compiles each
 step for 256 or 512 TPU chips and reads XLA's per-device memory and HLO.
-The port runs a model on one device: `Rules.constrain` refuses a mesh of
-more than one device, and PyTorch has no SPMD partitioner that would emit a
-per-device program.  So here each step is traced once, eagerly, on
-``meta`` tensors at the cell's global shapes, under the op-level walker
+The port runs a sharded step as DTensors on a DeviceMesh of real ranks
+(`Rules` given a DeviceMesh), and PyTorch has no SPMD partitioner that
+would emit a per-device program for a mesh it does not have.  So here each
+step is traced once, eagerly, over the mesh's axis sizes (a mapping: no
+DTensor, no rank), on ``meta`` tensors at the cell's global shapes, under
+the op-level walker
 (`repro_torch.launch.hlo_stats`): a host tool that allocates nothing, as
 the reference's dry run is.  A record holds
 
@@ -26,8 +28,9 @@ the reference's dry run is.  A record holds
   to replication), and ``temp_bytes``, the trace's peak of live
   intermediates divided by the batch's shard count;
 * the collectives: exact (0) on one device; on a mesh of more than one,
-  null and named "not modelled", as the port issues no collective for a
-  sharded model;
+  null and named "not modelled": the trace over a mapping redistributes
+  nothing, and counting the DTensor program's collectives is still open
+  (ROADMAP.md);
 * null where the port has no counterpart: ``compile_s`` (nothing is
   compiled; ``lower_s`` is the trace's seconds) and ``xla_cost_analysis``.
 
@@ -35,9 +38,7 @@ On ``meta`` a model takes its CPU route: train and prefill attention are
 `chunked_attention`, not kernel 5, so the walker counts the chunked form's
 operations and no kernel of the repository launches.  The roofline prices
 the per-device FLOPs at `PEAK_FLOPS_BF16` and the bytes at `HBM_BW`, the
-card's (`repro_torch.device`).  Sharded execution across cards is not part
-of the port (ROADMAP.md): it needs `torch.distributed.tensor` over more
-than one card.
+card's (`repro_torch.device`).
 """
 from __future__ import annotations
 

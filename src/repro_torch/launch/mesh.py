@@ -1,13 +1,16 @@
-"""Production mesh builders, as the axis sizes the port's `Rules` takes.
+"""Production mesh builders, and the device mesh a sharded step runs on.
 
-The counterpart of `repro.launch.mesh`.  The port has no named device mesh
-(`repro_torch.models.sharding`): a mesh is a mapping of axis names to
-sizes, so every arch's `ParallelConfig` and every `Rules` fallback carry
-over unchanged.  Single-pod: 16×16, 256 cards; multi-pod: 2×16×16, 512
-cards, the "pod" axis crossing the data-center network.  These meshes are
-what the dry run (`repro_torch.launch.dryrun`) lays each step out on; no
-code of the port runs a model across them (see the dry run's docstring).
-`make_host_mesh(1, 1)` is the one card.
+The counterpart of `repro.launch.mesh`.  `make_production_mesh` and
+`make_host_mesh` return a mesh as its axis sizes, a mapping of axis names
+to sizes, which `Rules` takes as it takes a mesh: the dry run
+(`repro_torch.launch.dryrun`) lays each step out on these without ranks.
+Single-pod: 16×16, 256 cards; multi-pod: 2×16×16, 512 cards, the "pod"
+axis crossing the data-center network.  `make_host_mesh(1, 1)` is the one
+card.  `device_mesh` turns such sizes into the
+`torch.distributed.device_mesh.DeviceMesh` over the default process group
+that the sharded train step and server run on (`Rules` given a DeviceMesh
+lays every tensor out as a DTensor), and `init_from_env` starts that group
+from the environment as ``jax.distributed.initialize`` does.
 
 The module holds no rates of its own: the roofline's are the card's, from
 `repro_torch.device` (the counterpart of the reference's v5e constants),
@@ -15,7 +18,9 @@ re-exported here as the reference's module exports its own.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+import os
+from typing import Dict, Mapping
 
 from ..device import HBM_BW, PEAK_FLOPS_BF16  # noqa: F401  (re-exported)
 
@@ -29,3 +34,32 @@ def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
 def make_host_mesh(data: int = 2, model: int = 2) -> Dict[str, int]:
     """A small mesh, for tests and examples; (1, 1) is the one card."""
     return {"data": data, "model": model}
+
+
+def device_mesh(sizes: Mapping[str, int], device="cuda"):
+    """The DeviceMesh of axis ``sizes`` (in their order) over the default
+    process group, whose world size must be their product, on ``device``'s
+    type (a card a rank, or the CPU under gloo)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(torch.device(device).type,
+                            tuple(int(n) for n in sizes.values()),
+                            mesh_dim_names=tuple(sizes))
+
+
+def init_from_env(sizes: Mapping[str, int], device="cuda") -> None:
+    """Join the job the environment names (``MASTER_ADDR``,
+    ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``; rank r on card ``LOCAL_RANK``),
+    NCCL on the card and gloo on the CPU, unless the default group is up;
+    then refuse a world size other than the mesh's card count."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if not dist.is_initialized():
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    world, need = dist.get_world_size(), math.prod(sizes.values())
+    if world != need:
+        raise ValueError(f"a world of {world} ranks does not match the mesh "
+                         f"{dict(sizes)} of {need} cards")

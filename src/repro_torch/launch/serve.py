@@ -27,10 +27,24 @@ the reference launcher's zero ``frames``, (B, len(prompt), d_model) at
 prefill and (B, 1, d_model) at decode.  `main` draws the parameters from
 ``--seed`` and the requests as the reference launcher draws them, and
 prints its line.
+
+Given a DeviceMesh (``serve(…, mesh=)``), the parameters and the cache are
+DTensors laid out by the model's `Rules` on that mesh, which for
+``decode_32k`` is the reference's serving cell (qwen2-7b's ``""`` entry:
+heads, MLP, vocabulary and experts on ``model``, the batch and FSDP on
+``data``, the cache's positions on ``model``), and every rank runs the same
+batcher in step.  Where a cache leaf's batch axis is sharded, no slot's
+rows are one rank's view, so every family prefills as the reference does:
+the prompt broadcast to all slots on a copy of the cache, merged back by a
+``where`` on each leaf's batch axis.  `main` serves on the reference's mesh
+(the production mesh, 1×1 with ``--reduced``) when it is started as ranks
+of a job (``WORLD_SIZE`` in the environment, as ``torchrun`` sets it),
+joining it as `repro_torch.launch.mesh.init_from_env` does.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -41,8 +55,9 @@ from .. import configs
 from ..configs.base import reduced as reduce_cfg
 from ..models import build
 from ..models.common import resolve_device
-from ..models.sharding import Rules
+from ..models.sharding import Rules, is_dtensor, local_tensor
 from ..serve import BatchSlots, ContinuousBatcher, Request
+from .mesh import device_mesh, init_from_env, make_production_mesh
 
 #: the one device the port runs a model on, as a mesh of axis sizes
 MESH = {"data": 1, "model": 1}
@@ -63,35 +78,72 @@ def draw_requests(n: int, vocab_size: int, max_new: int, seed: int = 0
     return out
 
 
+def _whole(x):
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def serve(model, params, requests: List[Request], slots: int, max_seq: int,
-          device=None) -> Tuple[List[Request], Dict[str, float]]:
+          device=None, mesh=None) -> Tuple[List[Request], Dict[str, float]]:
     """Serve ``requests`` to completion with ``slots`` decode slots and a
     cache of ``max_seq`` positions on ``device`` (the card where None; the
     parameters must be there).  Returns the finished requests and the
     batcher's counters: ``steps`` (decode steps), ``slot_steps`` (occupied
     slots summed over them), ``prefills`` (prefill calls) and ``seconds``
-    (host clock of the whole run)."""
+    (host clock of the whole run).  On a DeviceMesh ``mesh`` the parameters
+    are laid out on it (see the module docstring)."""
     dev = resolve_device(device)
-    rules = Rules.make(MESH, model.par)
+    rules = Rules.make(MESH if mesh is None else mesh, model.par)
     cfg = model.cfg
     B = slots
-    box = {"cache": model.init_cache(B, max_seq, dev), "prefills": 0}
     axes = model.batch_axes()
-    coupled = cfg.num_experts > 0
+    if rules.on_mesh:
+        params = model.distribute(params, rules)
+        cache = model.init_cache(B, max_seq, dev, rules)
+    else:
+        cache = model.init_cache(B, max_seq, dev)
+    box = {"cache": cache, "prefills": 0}
+    # the prompt goes to every slot where the rows are coupled: by the
+    # experts' capacity, or on a mesh that splits a leaf's batch axis
+    broadcast = cfg.num_experts > 0 or (rules.on_mesh and any(
+        p.is_shard(axes[k]) for k, v in cache.items() for p in v.placements))
 
     def with_frames(batch, n: int):
         if cfg.family == "encdec":
             batch["frames"] = torch.zeros((batch["tokens"].shape[0], n,
                                            cfg.d_model), device=dev)
-        return batch
+        names = {"tokens": ("batch", "seq"),
+                 "frames": ("batch", "seq", "embed_act")}
+        return {k: v if k == "pos" else rules.distribute(v, names[k])
+                for k, v in batch.items()}
 
     def rows(leaf, key, slot):
-        return leaf.narrow(axes[key], slot, 1)
+        if not is_dtensor(leaf):
+            return leaf.narrow(axes[key], slot, 1)
+        from torch.distributed.tensor import DTensor
+        # a DTensor whose batch axis is whole on each rank: a view of the
+        # slot's rows in its local block, so writes reach the cache
+        view = local_tensor(leaf).narrow(axes[key], slot, 1)
+        shape = list(leaf.shape)
+        shape[axes[key]] = 1
+        return DTensor.from_local(view, leaf.device_mesh, leaf.placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=view.stride())
+
+    def merge(leaf, new, key, slot):
+        """The slot's rows of ``new`` into ``leaf``, in place."""
+        if not is_dtensor(leaf):
+            rows(leaf, key, slot).copy_(rows(new, key, slot))
+            return
+        shape = [1] * leaf.ndim
+        shape[axes[key]] = B
+        sel = (torch.arange(B, device=dev) == slot).reshape(shape)
+        with rules.context():
+            leaf.copy_(torch.where(sel, new, leaf))
 
     def prefill_fn(slot: int, prompt) -> int:
         toks = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
         cache = box["cache"]
-        if coupled:
+        if broadcast:
             # the prompt in every row, from a copy of the whole cache; the
             # slot's rows are copied back
             toks = toks.expand(B, -1)
@@ -101,18 +153,18 @@ def serve(model, params, requests: List[Request], slots: int, max_seq: int,
             work = {k: rows(v, k, slot) for k, v in cache.items()}
         logits, work = model.prefill_fn(
             params, with_frames({"tokens": toks}, toks.shape[1]), rules, work)
-        if coupled:
+        if broadcast:
             for k, v in cache.items():
-                rows(v, k, slot).copy_(rows(work[k], k, slot))
+                merge(v, work[k], k, slot)
         box["prefills"] += 1
-        return int(torch.argmax(logits[slot if coupled else 0, -1]))
+        return int(torch.argmax(_whole(logits)[slot if broadcast else 0, -1]))
 
     def step_fn(tokens, pos):
         batch = with_frames({"tokens": torch.as_tensor(tokens, device=dev),
                              "pos": int(pos.max())}, 1)
         logits, box["cache"] = model.decode_fn(params, batch, box["cache"],
                                                rules)
-        return torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        return torch.argmax(_whole(logits)[:, 0], dim=-1).cpu().numpy()
 
     batcher = ContinuousBatcher(
         BatchSlots(capacity=B, max_seq=max_seq), prefill_fn, step_fn)
@@ -143,11 +195,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     bundle = configs.get(args.arch)
     cfg = reduce_cfg(bundle.model) if args.reduced else bundle.model
     model = build(cfg, bundle.parallel_for("decode_32k", multi_pod=False))
+    mesh = None
+    if "WORLD_SIZE" in os.environ:          # started as ranks of a job
+        sizes = MESH if args.reduced else make_production_mesh()
+        init_from_env(sizes, args.device)
+        mesh = device_mesh(sizes, args.device)
     params = model.init(args.seed, args.device)
     requests = draw_requests(args.requests, cfg.vocab_size, args.max_new,
                              args.seed)
     done, c = serve(model, params, requests, args.slots, args.max_seq,
-                    args.device)
+                    args.device, mesh)
     total_tokens = sum(len(r.generated) for r in done)
     dt = c["seconds"]
     print(f"served {len(done)} requests, {total_tokens} tokens in {dt:.1f}s "

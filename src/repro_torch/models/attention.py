@@ -21,6 +21,19 @@ place: `cache_write_token` and `cache_write_layer` update the tensor they
 are given and return it, as XLA aliases the reference's carried cache.  A
 view of some batch rows is written through to the whole cache (the serving
 launcher prefills one slot's rows so).
+
+On a DeviceMesh (`Rules.on_mesh`) every tensor is a DTensor.  Train and
+prefill attention (kernel 5, or `chunked_attention` on the CPU) and cross
+attention run under `local_map` on each rank's (batch, heads) block of q,
+with the whole sequence (a sharded ``"seq"`` is gathered first, as GSPMD
+gathers around a custom call) and every kv head: query head h reads kv head
+h % KV, so a block of whole groups of KV heads reads all of them in order,
+and any other block reads its own selection.  Heads and batch rows are
+independent, so each rank launches the same kernel on its own block, and
+the kernel's `autograd.Function` sees local tensors only.  Decode attention
+reads a cache whose ``kv_seq`` is sharded (the reference's serving layout):
+each rank scores its own positions, and the shards meet in the softmax's
+max and sum and in the output's sum over the kv_seq axes.  The cache writes go to each rank's own block of positions.
 """
 from __future__ import annotations
 
@@ -33,7 +46,8 @@ from ..kernels.flash_attention.kernel import flash_attention
 from ..kernels.flash_attention.ref import NEG, chunked_attention
 from .common import PSpec
 from .layers import norm_scale, rms_head, rope, scaled
-from .sharding import Rules
+from .sharding import (Rules, drop_leading, global_offset, local_tensor,
+                       unshard)
 
 
 def attn_plan(cfg: ModelConfig) -> Dict:
@@ -92,6 +106,84 @@ def self_attention(q, k, v, causal: bool = True):
     return chunked_attention(q, k, v, causal=causal)
 
 
+def _call_self_attention(q, k, v, causal):
+    """`self_attention`, looked up when called (a caller may replace the
+    module's function to check each call)."""
+    return self_attention(q, k, v, causal=causal)
+
+
+def _attend(fn, q, k, v, causal: bool, rules: Rules):
+    """``fn(q, k, v, causal=…)``; on a DeviceMesh on each rank's (batch,
+    heads) block of q, the whole sequence and the kv heads that block
+    reads (see the module docstring)."""
+    if not rules.on_mesh:
+        return fn(q, k, v, causal=causal)
+    from torch.distributed.tensor import Partial
+    KV = k.shape[2]
+    qpl = rules.placements(q.shape, ("batch", None, "heads", None))
+    kpl = rules.placements(k.shape, ("batch", None, None, None))
+    h0 = global_offset(q.shape, rules.mesh, qpl)[2]
+
+    def local(ql, kl, vl):
+        Hl = ql.shape[2]
+        if Hl % KV:               # a block of heads that are not whole groups
+            idx = (h0 + torch.arange(Hl, device=ql.device)) % KV
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return fn(ql, kl, vl, causal=causal)
+
+    # ranks that split the heads each read every kv head: their gradients
+    # of k and v are parts of one sum
+    kgrad = tuple(Partial() if a.is_shard(2) else b
+                  for a, b in zip(qpl, kpl))
+    return rules.local_map(local, [qpl], (qpl, kpl, kpl),
+                           (qpl, kgrad, kgrad))(q, k, v)
+
+
+def _decode_on_mesh(q, k_cache, v_cache, kv_len, rules: Rules, k_scale,
+                    v_scale):
+    """`decode_attention` on DTensors: each rank scores its block of cache
+    positions against every head of its batch rows, and the blocks meet
+    over the kv_seq axes in the softmax's max and sum and in the output's
+    sum.  The operations are `decode_attention`'s, in its order, so a mesh
+    whose positions are whole on each rank computes its values exactly."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    mesh = rules.mesh
+    cpl = unshard(k_cache.placements, (2,))          # every kv head
+    qpl = tuple(p if p.is_shard(0) else Replicate() for p in cpl)
+    groups = [mesh.get_group(i) for i, p in enumerate(cpl) if p.is_shard(1)]
+    s0 = global_offset(k_cache.shape, mesh, cpl)[1]
+    scales = () if k_scale is None else (k_scale, v_scale)
+
+    def local(ql, kl, vl, *sc):
+        B, _, H, hd = ql.shape
+        S, KVh = kl.shape[1], kl.shape[2]
+        qg = scaled(ql.reshape(B, 1, H // KVh, KVh, hd)[:, 0], hd ** -0.5)
+        s = torch.einsum("bghd,bshd->bghs", qg.float(), kl.float())
+        if sc:
+            s = s * torch.movedim(sc[0][..., 0], 1, -1)[:, None]
+        pos = s0 + torch.arange(S, device=ql.device)
+        s = torch.where((pos < kv_len)[None, None, None, :], s, NEG)
+        m = s.amax(-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(l, group=g)
+        p = p / l
+        if sc:
+            p = p * torch.movedim(sc[1][..., 0], 1, -1)[:, None]
+        out = torch.einsum("bghs,bshd->bghd", p.float(), vl.float())
+        for g in groups:
+            dist.all_reduce(out, group=g)
+        return out.reshape(B, 1, H, hd).to(ql.dtype)
+
+    ins = (qpl, cpl, cpl) + (cpl, cpl)[:len(scales)]
+    return rules.local_map(local, [qpl], ins)(q, k_cache, v_cache, *scales)
+
+
 def decode_attention(q, k_cache, v_cache, kv_len, rules: Rules,
                      k_scale=None, v_scale=None):
     """One-token flash decoding against the KV cache.
@@ -99,6 +191,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, rules: Rules,
     q: (B, 1, H, hd); caches: (B, S, KV, hd).  int8 caches come with
     per-(token, head) scales (B, S, KV, 1); the scale is applied to the
     *scores* / probabilities, so the cache reads stay int8."""
+    if rules.on_mesh:
+        return _decode_on_mesh(q, k_cache, v_cache, kv_len, rules, k_scale,
+                               v_scale)
     B, _, H, hd = q.shape
     _, S, KVh, _ = k_cache.shape
     G = H // KVh
@@ -130,9 +225,9 @@ def attention(p, x, cfg: ModelConfig, rules: Rules, mode: str,
     new_cache = cache
     int8_kv = cache is not None and "k_scale" in cache
     if mode == "train":
-        o = self_attention(q, k, v, causal=causal)
+        o = _attend(_call_self_attention, q, k, v, causal, rules)
     elif mode == "prefill":
-        o = self_attention(q, k, v, causal=causal)
+        o = _attend(_call_self_attention, q, k, v, causal, rules)
         if cache is not None:
             new_cache = dict(cache)          # preserve non-KV keys (hybrid)
             kq, ks = _quantize_kv(k, int8_kv)
@@ -194,6 +289,11 @@ def cache_write_token(cache, layer_idx, pos, kv, rules: Rules):
     """Write one token: (B,1,KV,hd) into (L,B,S,KV,hd) at (layer, :, pos),
     in place.  ``pos`` may be a tensor on the device: it is used as an
     index there, never read back to the host."""
+    if rules.on_mesh:
+        c, kl, s0 = _local_write(cache, kv)
+        at = s0 + torch.arange(c.shape[2], device=c.device) == pos
+        c[layer_idx] = torch.where(at[None, :, None, None], kl, c[layer_idx])
+        return cache
     index = torch.as_tensor(pos, device=cache.device).reshape(1).long()
     cache[layer_idx].index_copy_(1, index, kv.to(cache.dtype))
     return rules.constrain(cache, None, "batch", "kv_seq", "kv_heads", None)
@@ -203,9 +303,25 @@ def cache_write_layer(cache, layer_idx, kv, rules: Rules):
     """Prefill: write a whole layer's fresh KV, zero past its length (the
     reference pads it to the cache length), in place."""
     n = kv.shape[1]
+    if rules.on_mesh:
+        c, kl, s0 = _local_write(cache, kv)
+        m = max(0, min(c.shape[2], n - s0))
+        c[layer_idx, :, :m] = kl[:, s0:s0 + m]
+        c[layer_idx, :, m:] = 0
+        return cache
     cache[layer_idx, :, :n] = kv.to(cache.dtype)
     cache[layer_idx, :, n:] = 0
     return rules.constrain(cache, None, "batch", "kv_seq", "kv_heads", None)
+
+
+def _local_write(cache, kv):
+    """For a write of ``kv`` (B, n, KV, hd) into a DTensor cache (L, B, S,
+    KV, hd): the cache's local block (its storage), this rank's rows of kv
+    at every position, and the first position of the local block."""
+    pl = drop_leading(unshard(cache.placements, (2,)), 1)
+    kl = kv.to(cache.dtype).redistribute(cache.device_mesh, pl).to_local()
+    s0 = global_offset(cache.shape, cache.device_mesh, cache.placements)[2]
+    return local_tensor(cache), kl, s0
 
 
 def cross_attention(p, x, enc_kv, cfg: ModelConfig, rules: Rules):
@@ -217,6 +333,6 @@ def cross_attention(p, x, enc_kv, cfg: ModelConfig, rules: Rules):
     if cfg.qkv_bias:
         q = q + p["bq"]
     k, v = enc_kv
-    o = chunked_attention(q, k, v, causal=False)
+    o = _attend(chunked_attention, q, k, v, False, rules)
     dt = torch.promote_types(o.dtype, p["wo"].dtype)
     return _heads_out(o.to(dt), p["wo"].to(dt))

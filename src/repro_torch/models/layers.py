@@ -4,6 +4,13 @@ The port of `repro.models.layers`, with the reference's numerics: norms in
 float32, products in the activations' dtype, and a Python scalar that
 multiplies a low-precision tensor rounded to its dtype first, as JAX rounds a
 weakly typed scalar (`scaled`).
+
+On a DeviceMesh the layers run on DTensors (`Rules.on_mesh`).  The
+embedding gather is the one part written per rank (`_embed_on_mesh`): each
+rank looks its tokens up in its block of the vocabulary, rows outside it
+read zero, and the blocks' rows are summed over the vocabulary's axes.
+The logits stay sharded on the vocabulary (``"vocab_act"``), so the loss's
+max and log-sum-exp reduce across the model axis.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .common import PSpec, bias, linear, norm_scale
-from .sharding import Rules
+from .sharding import Rules, global_offset, is_dtensor
 
 
 def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -90,8 +97,34 @@ def embed_plan(cfg: ModelConfig) -> Dict:
 
 
 def embed_tokens(p, tokens, cfg: ModelConfig, rules: Rules):
-    x = F.embedding(tokens, p["embedding"])
+    if rules.on_mesh:
+        x = _embed_on_mesh(p["embedding"], tokens, rules)
+    else:
+        x = F.embedding(tokens, p["embedding"])
     return rules.constrain(x, "batch", "seq", "embed_act")
+
+
+def _embed_on_mesh(w, tokens, rules: Rules):
+    """The embedding gather on DTensors: tokens as laid out, the table's
+    vocabulary rows as laid out (d_model gathered); each rank's rows of
+    other blocks read zero and the output is a partial sum over the
+    vocabulary's axes.  A mesh axis that splits the tokens keeps the whole
+    vocabulary, and its ranks' gradients of the table are partial sums."""
+    from torch.distributed.tensor import Partial, Replicate
+    tpl = rules.placements(tokens.shape, ("batch", "seq"))
+    wpl = tuple(Replicate() if t.is_shard() else p for t, p in zip(
+        tpl, rules.placements(w.shape, ("vocab_act", None))))
+    out = tuple(Partial() if p.is_shard() else t for t, p in zip(tpl, wpl))
+    wgrad = tuple(Partial() if t.is_shard() else p for t, p in zip(tpl, wpl))
+    v0 = global_offset(w.shape, rules.mesh, wpl)[0]
+
+    def local(tl, wl):
+        idx = tl.long() - v0
+        mine = (idx >= 0) & (idx < wl.shape[0])
+        x = F.embedding(idx.clamp(0, wl.shape[0] - 1), wl)
+        return torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype))
+
+    return rules.local_map(local, [out], (tpl, wpl), (tpl, wgrad))(tokens, w)
 
 
 def logits_from(p, x, cfg: ModelConfig, rules: Rules):
@@ -114,9 +147,33 @@ def cross_entropy(logits, labels, vocab_size: int) -> torch.Tensor:
     m = logits.amax(-1, keepdim=True).detach()
     shifted = logits - m
     lse = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
-    gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0] \
-        + m[..., 0]
+    gold = _pick(shifted, labels) + m[..., 0]
     return (lse - gold).mean()
+
+
+def _pick(x, labels):
+    """``x[..., labels]`` along the last dimension.  On a DTensor whose
+    last dimension is sharded, each rank picks from its own block (zero
+    where the label lies in another) and the picks are a partial sum over
+    that dimension's axes."""
+    if not is_dtensor(x):
+        return torch.gather(x, -1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    d = x.ndim - 1
+    xpl = tuple(x.placements)
+    lpl = [Replicate() if p.is_shard(d) else p for p in xpl]
+    out = [Partial() if p.is_shard(d) else p for p in xpl]
+    v0 = global_offset(x.shape, x.device_mesh, xpl)[d]
+
+    def local(xl, ll):
+        idx = ll.long() - v0
+        mine = (idx >= 0) & (idx < xl.shape[-1])
+        picked = torch.gather(xl, -1, idx.clamp(0, xl.shape[-1] - 1)[..., None])
+        return torch.where(mine, picked[..., 0], torch.zeros((), dtype=xl.dtype))
+
+    return local_map(local, out_placements=out, in_placements=(list(xpl), lpl),
+                     redistribute_inputs=True)(x, labels)
 
 
 # ------------------------------------------------------------------ rotary

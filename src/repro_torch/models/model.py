@@ -29,6 +29,18 @@ returns the same tensors.  Each leaf's batch axis is where its plan names
 ``"batch"``: dim 1, but dim 2 for the hybrid's Mamba leaves, (super-blocks,
 attn_period − 1, B, …).  Entry points that allocate (`Model.init`,
 `Model.init_cache`) run on the card unless given ``device="cpu"``.
+
+Given rules on a DeviceMesh (`Rules.on_mesh`), every step runs on DTensors:
+`Model.distribute` lays the parameters out by `param_specs` and
+``init_cache(…, rules=)`` the cache by `cache_specs`, and the stacks run
+unchanged, their `rules.constrain` calls redistributing activations as the
+reference's ``with_sharding_constraint`` does; the kernels and the MoE
+dispatch run on local blocks under `local_map` (`attention`, `rwkv`,
+`moe`), and the cache's in-place writes go to each rank's block.  Plain
+tensors made inside a step (positions, masks) count as replicated
+(`Rules.context`).  The parameters are drawn in full on every rank from the
+same seed and each rank keeps its block, so init holds the whole model
+once a rank.
 """
 from __future__ import annotations
 
@@ -49,7 +61,7 @@ from .layers import (apply_mlp, apply_norm, cross_entropy, embed_plan,
                      embed_tokens, logits_from, mlp_plan, norm_plan,
                      sinusoidal_positions)
 from .moe import apply_moe, moe_plan
-from .sharding import Rules
+from .sharding import Rules, is_dtensor, set_index
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": torch.int8}
@@ -58,6 +70,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 def _write1(tree_leaf, i, val):
     """Write ``val`` at index i of the leading (layer) dimension, in
     place."""
+    if is_dtensor(tree_leaf):
+        set_index(tree_leaf, (i,), val)
+        return tree_leaf
     tree_leaf[i] = val.to(tree_leaf.dtype)
     return tree_leaf
 
@@ -65,6 +80,9 @@ def _write1(tree_leaf, i, val):
 def _write2(tree_leaf, i, j, val):
     """Write ``val`` at [i, j] of the two leading dimensions (super-block,
     Mamba sublayer), in place."""
+    if is_dtensor(tree_leaf):
+        set_index(tree_leaf, (i, j), val)
+        return tree_leaf
     tree_leaf[i, j] = val.to(tree_leaf.dtype)
     return tree_leaf
 
@@ -110,6 +128,13 @@ class Model:
     def param_specs(self, rules: Rules):
         return partition_specs(self.plan, rules)
 
+    def distribute(self, params, rules: Rules):
+        """``params`` laid out by `param_specs` on the rules' DeviceMesh
+        (every rank passes the same full tensors; a mapping returns them
+        as they are)."""
+        return tree_map(lambda p, x: rules.distribute(x, p.names), self.plan,
+                        params)
+
     # -------------------------------------------------------------- cache
     def cache_plan(self, batch: int, seq: int) -> Dict:
         cfg = self.cfg
@@ -146,9 +171,15 @@ class Model:
     def cache_specs(self, batch: int, seq: int, rules: Rules):
         return partition_specs(self.cache_plan(batch, seq), rules)
 
-    def init_cache(self, batch: int, seq: int, device=None):
-        """An all-zero cache on ``device`` (the card where None)."""
-        return init_params(0, self.cache_plan(batch, seq), device)
+    def init_cache(self, batch: int, seq: int, device=None, rules=None):
+        """An all-zero cache on ``device`` (the card where None), laid out
+        by `cache_specs` where ``rules`` are on a DeviceMesh."""
+        plan = self.cache_plan(batch, seq)
+        cache = init_params(0, plan, device)
+        if rules is None:
+            return cache
+        return tree_map(lambda p, x: rules.distribute(x, p.names), plan,
+                        cache)
 
     # ------------------------------------------------------------ forward
     def forward(self, params, batch: Dict, rules: Rules, mode: str,
@@ -158,6 +189,10 @@ class Model:
         tensor on that device, and for the encoder-decoder in train and
         prefill "frames": (B, S_enc, d_model) frame embeddings}.  Returns
         (logits, cache, aux)."""
+        with rules.context():
+            return self._forward(params, batch, rules, mode, cache)
+
+    def _forward(self, params, batch: Dict, rules: Rules, mode: str, cache):
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -187,6 +222,10 @@ class Model:
         return logits, new_cache, aux
 
     def loss_fn(self, params, batch: Dict, rules: Rules):
+        with rules.context():
+            return self._loss(params, batch, rules)
+
+    def _loss(self, params, batch: Dict, rules: Rules):
         logits, _, aux = self.forward(params, batch, rules, "train")
         labels = torch.cat(
             [batch["tokens"][:, 1:], batch["tokens"][:, -1:]], dim=1)

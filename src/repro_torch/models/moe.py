@@ -28,6 +28,17 @@ token's K slot gradients the same way (`_Dispatch`); no ``index_add_`` or
 ``index_put_`` meets a repeated index.  On one device the reference's
 ``shard_map`` and ``psum`` over the expert axis are the identity.
 
+On a DeviceMesh (`_apply_moe_on_mesh`) the router, its softmax and the
+top-k run on DTensors, and the rest is the reference's ``shard_map`` as a
+`local_map`: the groups are the batch's shards, so each rank routes its own
+group (`route`, `_Dispatch`, `_rows`) over every expert, runs its block of
+experts (their d_model gathered) on the slots they hold, and adds its
+slots to its tokens in the same fixed-order float32 sum over K; the sum
+over the expert axes is then one reduction (``Partial`` → ``Replicate``),
+in float32 where the reference sums bf16.  An expert shard's gradients of
+the tokens and the gates are parts of one sum over the expert axes, and a
+batch shard's gradients of the experts parts of one over the batch axes.
+
 Top-k takes the K largest router probabilities with ties to the lower
 expert index, as ``lax.top_k`` does (a stable descending sort).  The
 experts' products are `torch.matmul` over the expert dimension (the
@@ -58,7 +69,7 @@ def moe_plan(cfg: ModelConfig) -> Dict:
 
 def _num_groups(rules: Rules, batch: int) -> int:
     axes = rules._axes_for("batch", batch, set())
-    return int(math.prod(int(rules.mesh[a]) for a in axes)) or 1
+    return int(math.prod(rules.sizes[a] for a in axes)) or 1
 
 
 def capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
@@ -131,6 +142,8 @@ class _Dispatch(torch.autograd.Function):
 def apply_moe(p, x, cfg: ModelConfig, rules: Rules
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (y, aux_loss)."""
+    if rules.on_mesh:
+        return _apply_moe_on_mesh(p, x, cfg, rules)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     G = _num_groups(rules, B)
@@ -164,3 +177,69 @@ def apply_moe(p, x, cfg: ModelConfig, rules: Rules
          .reshape(G, Tg, K, D) * w[..., None]).sum(2).to(x.dtype)
     y = rules.constrain(y.reshape(B, S, D), "batch", "seq", "embed_act")
     return y.to(x.dtype), aux.float()
+
+
+def _apply_moe_on_mesh(p, x, cfg: ModelConfig, rules: Rules
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`apply_moe` on DTensors (see the module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    G = _num_groups(rules, B)
+    cap = capacity(B * S // G, cfg)
+    batch_axes = rules._axes_for("batch", B, set())
+    expert_axes = rules._axes_for("experts", E, set(batch_axes))
+    dims = list(rules.mesh.mesh_dim_names)
+
+    def by_axis(batch, experts, other):
+        return tuple(batch if a in batch_axes else experts
+                     if a in expert_axes else other for a in dims)
+
+    x = rules.constrain(x, "batch", None, "embed_act")
+    logits = (x @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = top[..., :K], idx[..., :K]                     # (B,S,K)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    rows = by_axis(Shard(0), Replicate(), Replicate())         # tokens
+    wpl = by_axis(Replicate(), Shard(0), Replicate())          # experts
+    e0 = (rules.shard_index(expert_axes) * E
+          // math.prod(rules.sizes[a] for a in expert_axes))
+
+    def local(xl, gl, el, wg, wu, wo):
+        Bl = xl.shape[0]
+        Tg, El = Bl * S, wg.shape[0]
+        xf = xl.reshape(1, Tg, D)
+        slot, kept, disp, used = route(el.reshape(1, Tg, K), E, cap)
+        # this rank's experts: their slots, and each assignment's slot
+        # among them (kept where the assignment is theirs)
+        lo, n = e0 * cap, El * cap
+        mine = kept & (slot >= lo) & (slot < lo + n)
+        lslot = torch.where(mine, slot - lo, 0)
+        xe = _Dispatch.apply(xf, disp[:, lo:lo + n], used[:, lo:lo + n],
+                             lslot, mine).reshape(El, cap, D)
+        h = F.silu(xe @ wg) * (xe @ wu)
+        ye = (h @ wo).reshape(1, n, D)
+        w = torch.where(mine, gl.reshape(1, Tg, K), 0.0)
+        y = (_rows(ye, lslot.reshape(1, Tg * K)).float()
+             .reshape(1, Tg, K, D) * w[..., None]).sum(2)
+        frac = F.one_hot(el.reshape(Tg, K)[:, 0], E).float().sum(0) / (B * S)
+        return y.reshape(Bl, S, D), frac
+
+    y, frac = rules.local_map(
+        local,
+        [by_axis(Shard(0), Partial(), Replicate()),
+         by_axis(Partial(), Replicate(), Replicate())],
+        (rows, rows, rows, wpl, wpl, wpl),
+        (by_axis(Shard(0), Partial(), Replicate()),
+         by_axis(Shard(0), Partial(), Replicate()), rows,
+         by_axis(Partial(), Shard(0), Replicate()),
+         by_axis(Partial(), Shard(0), Replicate()),
+         by_axis(Partial(), Shard(0), Replicate())),
+    )(x, gate, eidx, p["wi_gate"], p["wi_up"], p["wo"])
+    # Switch aux loss: mean fraction routed vs mean router prob per expert
+    aux = E * (frac * probs.mean((0, 1))).sum()
+    y = rules.constrain(y, "batch", "seq", "embed_act").to(x.dtype)
+    return y, aux.float()

@@ -16,9 +16,15 @@ recurrence, and under autograd its gradient is the chunked form's (the
 wrapper's `autograd.Function`).  Kernel 6 takes no initial state and returns
 no final state, so prefill with a cache and decode run the chunked form and
 the one-step recurrence in PyTorch on every device.
+
+On a DeviceMesh the time-mix core (`_core`: kernel 6, the chunked form or
+the recurrent step) runs under `local_map` on each rank's (batch, heads)
+block, the sequence whole: heads and batch rows are independent, so each
+rank launches the kernel on its own block, never on a DTensor.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -105,22 +111,13 @@ def apply_time_mix(p, x, cfg: ModelConfig, rules: Rules, mode: str,
     logw = -torch.exp(wln)                                      # (B,S,H,hd)
     u = p["u"].float()
 
-    state = None
-    if mode == "decode":
-        state0 = cache["state"]
-        r1, k1, v1 = (a[:, 0].float() for a in (r, k, v))
-        kv = k1[..., :, None] * v1[..., None, :]                # (B,H,hd,hd)
-        y = torch.einsum("bhk,bhkd->bhd", r1, state0 + u[..., None] * kv)
-        state = torch.exp(logw[:, 0])[..., None] * state0 + kv
-        y = y[:, None]                                          # (B,1,H,hd)
-    elif mode == "train" and cache is None and x.device.type == "cuda":
-        y = gla_timemix(r.float(), k.float(), v.float(), logw, u,
-                        chunk=chunk_size(S, chunk))
+    state0 = cache["state"] if cache is not None else None
+    core = functools.partial(_core, mode=mode, chunk=chunk_size(S, chunk),
+                             want_state=cache is not None or mode != "train")
+    if rules.on_mesh:
+        y, state = _core_on_mesh(core, r, k, v, logw, u, state0, rules)
     else:
-        state0 = (cache["state"] if cache is not None
-                  else torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                                   device=x.device))
-        y, state = _chunked(r, k, v, logw, u, state0, chunk_size(S, chunk))
+        y, state = core(r, k, v, logw, u, state0)
 
     # per-head groupnorm-lite + gate
     ms = torch.clamp((y * y).mean(-1, keepdim=True), min=1e-12)
@@ -131,6 +128,51 @@ def apply_time_mix(p, x, cfg: ModelConfig, rules: Rules, mode: str,
     if cache is not None or mode != "train":
         new_cache = {"shift": x[:, -1].to(x.dtype), "state": state}
     return out, new_cache
+
+
+def _core(r, k, v, logw, u, state0, *, mode: str, chunk: int,
+          want_state: bool):
+    """The time-mix core, (y, state): the recurrent step in decode, kernel
+    6 in a train forward from a zero state on the card (no state), else
+    the chunked form from ``state0`` (zero where None)."""
+    B, S, H, hd = r.shape
+    if mode == "decode":
+        r1, k1, v1 = (a[:, 0].float() for a in (r, k, v))
+        kv = k1[..., :, None] * v1[..., None, :]                # (B,H,hd,hd)
+        y = torch.einsum("bhk,bhkd->bhd", r1, state0 + u[..., None] * kv)
+        state = torch.exp(logw[:, 0])[..., None] * state0 + kv
+        return y[:, None], state                                # (B,1,H,hd)
+    if not want_state and r.device.type == "cuda":
+        return gla_timemix(r.float(), k.float(), v.float(), logw, u,
+                           chunk=chunk), None
+    if state0 is None:
+        state0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                             device=r.device)
+    return _chunked(r, k, v, logw, u, state0, chunk)
+
+
+def _core_on_mesh(core, r, k, v, logw, u, state0, rules: Rules):
+    """`_core` on each rank's (batch, heads) block (see the module
+    docstring).  ``u`` is whole on the batch axes, so the batch shards'
+    gradients of it are parts of one sum."""
+    from torch.distributed.tensor import Partial
+    B, S, H, hd = r.shape
+    rpl = rules.placements(r.shape, ("batch", None, "heads", None))
+    upl = rules.placements(u.shape, ("heads", None))
+    spl = rules.placements((B, H, hd, hd), ("batch", "heads", None, None))
+    ugrad = tuple(Partial() if a.is_shard(0) else b for a, b in zip(rpl, upl))
+    want_state = core.keywords["want_state"]
+    args = (r, k, v, logw, u) + ((state0,) if state0 is not None else ())
+    ins = (rpl,) * 4 + (upl,) + ((spl,) if state0 is not None else ())
+    grads = (rpl,) * 4 + (ugrad,) + ((spl,) if state0 is not None else ())
+
+    def local(rl, kl, vl, wl, ul, sl=None):
+        y, state = core(rl, kl, vl, wl, ul, sl)
+        return (y, state) if want_state else y
+
+    outs = [rpl, spl] if want_state else [rpl]
+    out = rules.local_map(local, outs, ins, grads)(*args)
+    return out if want_state else (out, None)
 
 
 def apply_channel_mix(p, x, cfg: ModelConfig, rules: Rules, mode: str,

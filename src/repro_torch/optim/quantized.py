@@ -5,6 +5,13 @@ per 256-element block of the last dimension, so the quantized state keeps
 the parameter's layout and (de)quantization is local elementwise math — no
 reshaping of the state into another layout.  About 2 B/param of optimizer
 state instead of 8 B.
+
+A DTensor (the sharded train step) is quantized in the blocks of its global
+last dimension, as the reference's jitted step computes them whatever the
+layout: where that dimension is sharded, a shard need not hold whole
+blocks (a last dimension of 300 on two ranks), so the dimension is gathered
+first and each rank quantizes its rows whole; ``q`` keeps the value's
+placements and ``scale`` those with its last dimension whole.
 """
 from __future__ import annotations
 
@@ -25,7 +32,36 @@ def scale_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(shape[:-1]) + (max(1, -(-last // BLOCK)),)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _whole_last(x):
+    """A DTensor with its last dimension gathered, and those placements."""
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if p.is_shard(x.ndim - 1) else p
+               for p in x.placements)
+    return x.redistribute(x.device_mesh, pl), pl
+
+
+def _from_local(t, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def quantize_array(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    if _is_dtensor(x):
+        whole, pl = _whole_last(x.to(torch.float32))
+        s = quantize_array(whole.to_local())
+        mesh = x.device_mesh
+        shape = tuple(x.shape) or (1,)
+        q = _from_local(s["q"], mesh, pl, shape)
+        return {"q": q.redistribute(mesh, x.placements) if x.ndim else q,
+                "scale": _from_local(s["scale"], mesh, pl,
+                                     scale_shape(tuple(x.shape)))}
     x = x.to(torch.float32)
     if x.ndim == 0:
         x = x[None]
@@ -48,6 +84,14 @@ def quantize_array(x: torch.Tensor) -> Dict[str, torch.Tensor]:
 def dequantize_array(s: Dict[str, torch.Tensor], shape,
                      dtype=torch.float32) -> torch.Tensor:
     q, scale = s["q"], s["scale"]
+    if _is_dtensor(q):
+        whole, pl = _whole_last(q)
+        mesh = q.device_mesh
+        sc = scale.redistribute(mesh, pl).to_local()
+        x = dequantize_array({"q": whole.to_local(), "scale": sc},
+                             whole.to_local().shape, dtype)
+        return _from_local(x, mesh, pl, q.shape).redistribute(
+            mesh, q.placements).reshape(shape)
     view = q if q.ndim else q[None]
     last = view.shape[-1]
     nb = scale.shape[-1]

@@ -15,6 +15,12 @@ differences that make a resumed or replayed run exact:
   and the losses rewind with it (`TrainReport.losses` holds one loss per
   step of the run that stands).  The reference retries with the batch that
   failed and counts on.
+
+With rules on a DeviceMesh every rank runs this loop in step: the state is
+drawn whole and laid out by the bundle's specs (or restored onto them),
+the pipeline lays each batch out by the batch spec, every rank joins each
+checkpoint's gathers, and a fault injected at a step fails on every rank,
+so the restore and replay are collective too.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from ..checkpoint import CheckpointManager
 from ..data.pipeline import DataPipeline
 from ..models.common import resolve_device
 from ..models.model import Model
-from ..models.sharding import Rules
+from ..models.sharding import Rules, is_dtensor
+from ..tree import tree_map
 from .ft import PreemptionGuard, StepWatchdog, retrying
 from .step import init_train_state, make_abstract_train_state, make_train_step
 
@@ -62,15 +69,19 @@ def train(model: Model, rules: Rules, *, steps: int, ckpt_dir: str,
     guard = PreemptionGuard()
     watchdog = StepWatchdog()
     like = make_abstract_train_state(model)
+    layout = {}
+    if rules.on_mesh:
+        layout = {"mesh": rules.mesh, "placements": tree_map(
+            rules.spec_placements, bundle.state_specs)}
 
     # ----- state: fresh or restored
     restored_from = mgr.latest_step()
     if restored_from is not None:
-        state, extra = mgr.restore(restored_from, like, dev)
+        state, extra = mgr.restore(restored_from, like, dev, **layout)
         start_step = int(extra.get("data_step", restored_from))
         log.info("restored from step %s", restored_from)
     else:
-        state = init_train_state(model, seed, dev)
+        state = init_train_state(model, seed, dev, rules)
         start_step = 0
 
     cfg = model.cfg
@@ -80,7 +91,7 @@ def train(model: Model, rules: Rules, *, steps: int, ckpt_dir: str,
     if cfg.family == "encdec":
         extra_feats["frames"] = ((B, S, cfg.d_model), np.float32)
     pipe = DataPipeline(dev, batch=B, seq=S, vocab=cfg.vocab_size, seed=seed,
-                        start_step=start_step, extra=extra_feats)
+                        start_step=start_step, extra=extra_feats, rules=rules)
 
     losses = []
     box = {"state": state, "i": 0}
@@ -89,10 +100,10 @@ def train(model: Model, rules: Rules, *, steps: int, ckpt_dir: str,
         mgr.wait()                       # a save may still be in flight
         s = mgr.latest_step()
         if s is None:
-            box["state"] = init_train_state(model, seed, dev)
+            box["state"] = init_train_state(model, seed, dev, rules)
             pipe.step = 0
         else:
-            box["state"], extra = mgr.restore(s, like, dev)
+            box["state"], extra = mgr.restore(s, like, dev, **layout)
             pipe.step = int(extra.get("data_step", s))
         box["i"] = max(pipe.step - start_step, 0)
         del losses[box["i"]:]
@@ -113,7 +124,8 @@ def train(model: Model, rules: Rules, *, steps: int, ckpt_dir: str,
     while box["i"] < steps:
         t0 = time.time()
         metrics = guarded_step()
-        loss = float(metrics["loss"])
+        loss = metrics["loss"]
+        loss = float(loss.full_tensor() if is_dtensor(loss) else loss)
         i = box["i"]
         losses.append(loss)
         watchdog.observe(i, time.time() - t0)

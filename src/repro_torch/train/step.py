@@ -13,6 +13,15 @@ with its rounded reciprocal, the CPU and the reference exactly), then
 `optim.adamw_update` steps at ``cosine_warmup(lr, warmup, total)(step)``.
 The step returns a new state: parameters and moments are new tensors, as
 the reference's donated buffers are.
+
+With rules on a DeviceMesh the state is DTensors laid out by
+`make_train_state_specs` (`init_train_state(…, rules=)`), the batch is
+laid out by ``batch_spec``, and the same step runs on them: each
+microbatch's gradient is redistributed to its parameter's layout before it
+is summed (a gradient of replicated rows comes back as a partial sum over
+the batch's axes), the gradient's global norm is a reduction across the
+shards, and AdamW runs on each rank's blocks (`optim.adamw_update`, the
+int8 moments in the blocks of the global last dimension).
 """
 from __future__ import annotations
 
@@ -74,12 +83,18 @@ def make_abstract_train_state(model: Model):
                                         device="meta")}}
 
 
-def init_train_state(model: Model, seed: int, device=None):
+def init_train_state(model: Model, seed: int, device=None,
+                     rules: Rules = None):
     """Parameters drawn from ``seed`` and zero moments, on ``device`` (the
-    card where None)."""
+    card where None), laid out by `make_train_state_specs` where ``rules``
+    are on a DeviceMesh."""
     params = model.init(seed, device)
-    return {"params": params,
-            "opt": adamw_init(params, model.par.optimizer_state_dtype)}
+    if rules is not None and rules.on_mesh:
+        params = model.distribute(params, rules)
+    opt = adamw_init(params, model.par.optimizer_state_dtype)
+    if rules is not None and rules.on_mesh:
+        opt["step"] = rules.distribute(opt["step"], ())
+    return {"params": params, "opt": opt}
 
 
 def _to_mb(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -103,12 +118,14 @@ def _accumulated_grads(model: Model, rules: Rules, params, batch: Dict
     wrt = [p for p in tree_leaves(leaves) if p.requires_grad]
     dev = wrt[0].device
     mbs = tree_map(lambda x: _to_mb(x, m), batch)
-    g_acc = [torch.zeros(p.shape, dtype=accum, device=dev) for p in wrt]
+    g_acc = [torch.zeros_like(p, dtype=accum) for p in wrt]
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(m):
         mb = tree_map(lambda x: x[i], mbs)
         total, met = model.loss_fn(leaves, mb, rules)
         for a, g in zip(g_acc, torch.autograd.grad(total, wrt)):
+            if rules.on_mesh:
+                g = g.redistribute(a.device_mesh, a.placements)
             a.add_(g.to(accum))
         loss_sum = loss_sum + met["loss"].detach()
     div = torch.full((), float(m), device=dev)
@@ -137,12 +154,13 @@ def make_train_step(model: Model, rules: Rules, *,
 
     def train_step(state, batch):
         params = state["params"]
-        grads, loss = _accumulated_grads(model, rules, params, batch)
-        step = state["opt"]["step"]
-        with torch.no_grad():
-            new_params, new_opt, gnorm = adamw_update(
-                params, grads, state["opt"], lr_fn(step),
-                state_dtype=par.optimizer_state_dtype)
+        with rules.context():
+            grads, loss = _accumulated_grads(model, rules, params, batch)
+            step = state["opt"]["step"]
+            with torch.no_grad():
+                new_params, new_opt, gnorm = adamw_update(
+                    params, grads, state["opt"], lr_fn(step),
+                    state_dtype=par.optimizer_state_dtype)
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "step": new_opt["step"]}
         return {"params": new_params, "opt": new_opt}, metrics

@@ -991,3 +991,45 @@ def test_overflowing_moe_is_bit_equal_across_card_runs(cuda_device):
     assert n == cap - 1 == int((y0_cpu.abs().amax(-1) > 0).sum())
     assert _rel_err(first[0], apply_moe(p, x, cfg, rules)[0].detach()) \
         <= MODEL_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_under_local_map_on_a_one_card_mesh(causal,
+                                                            cuda_device):
+    """Kernel 5 on the sharded path (`attention._attend`: `local_map` on
+    each rank's (batch, heads) block) on a 1 x 1 DeviceMesh over a one-rank
+    NCCL group: one launch a call, and its plain version's output."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.group import _free_port
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import Rules
+    from repro_torch.models.attention import _attend, _call_self_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel = next(k for k in cuda_lib.KERNELS
+                  if k.source.stem == "flash_attention")
+    rng = np.random.default_rng(24)
+    B, S, H, KV, hd = 2, 64, 8, 2, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        rules = Rules.make(device_mesh({"data": 1, "model": 1}, "cuda"),
+                           ParallelConfig())
+        before = kernel.launches
+        got = _attend(_call_self_attention,
+                      rules.distribute(q, ("batch", "seq", "heads", None)),
+                      rules.distribute(k, ("batch", "seq", "kv_heads", None)),
+                      rules.distribute(v, ("batch", "seq", "kv_heads", None)),
+                      causal, rules).full_tensor()
+        assert kernel.launches == before + 1
+    finally:
+        dist.destroy_process_group()
+    want = _flash_attention_plain(q, k, v, causal=causal, bq=32, bk=32)
+    torch.cuda.synchronize()
+    assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)

@@ -504,14 +504,28 @@ def test_quickstart_example_runs_on_the_cpu(tmp_path, capsys):
     assert rep.steps_run == 3 and np.isfinite(rep.final_loss)
 
 
-def test_launcher_trains_reduced_and_refuses_distributed(tmp_path, capsys):
+def test_launcher_trains_reduced_and_refuses_distributed(tmp_path, capsys,
+                                                          monkeypatch):
+    """``--distributed`` joins the job the environment names (here a world
+    of one gloo rank) and refuses it: the full config trains on the
+    production mesh of 256 cards."""
+    import socket
+
+    import torch.distributed as dist
     from repro_torch.launch.train import main
     main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "2", "--ckpt",
           str(tmp_path), "--device", "cpu"])
     assert "steps=2 " in capsys.readouterr().out
-    with pytest.raises(NotImplementedError,
-                       match="sharded execution across cards"):
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                     RANK="0", WORLD_SIZE="1").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match="world of 1 ranks does not match "
+                       "the mesh .* of 256 cards"):
         main(["--arch", "smollm-135m", "--distributed", "--device", "cpu"])
+    assert not dist.is_initialized()
 
 
 def test_train_without_a_device_refuses_a_host_without_a_card(tmp_path,
