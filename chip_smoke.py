@@ -282,8 +282,14 @@ failure:
    ``skipped``, the skipped ones exactly ``long_500k`` of the archs that
    are neither ssm nor hybrid (the reference's rule), and no kernel may
    have launched in any worker or here (a trace on ``meta`` takes the CPU
-   route: attention is `chunked_attention`).  The two meshes' `render`
-   tables and the grid's seconds are printed.  Then three steps of phases
+   route: attention is `chunked_attention`).  Each record on a production
+   mesh is device 0's program, the step run as DTensors over a fake
+   process group of the mesh's size, and must carry its collectives: a
+   numeric ``collective_bytes`` above 0, its counts by kind and a
+   ``collective_s``.  The two meshes' `render` tables, per mesh the summed
+   trace, collective, compute and memory seconds and how many records
+   each term dominates, and the grid's seconds are printed.  Then three
+   steps of phases
    14-15, each model built from ``--seed`` on the card in bf16 and freed
    before the next: qwen2-7b's decode at B = 4 with a 256-position cache
    and its prefill of 1 x 4096, smollm-135m's train step at 4 x 4096
@@ -295,7 +301,9 @@ failure:
    growth over one call, the roofline seconds against the step's time
    (CUDA events, median of `DRYRUN_REPS`), the useful FLOPs ratio, and
    kernel 5's launches in one call (0, 28 and 60, as phases 14-15 read
-   them), which are each kernel's ``dryrun_path_launches``.
+   them), which are each kernel's ``dryrun_path_launches``.  No default
+   process group may be up at the end of the phase (phase 18 starts
+   one).
 18. The sharded path (`Rules` on a `DeviceMesh`, every tensor a DTensor,
    kernels 5 and 6 under `local_map` on each rank's block) at world size 1:
    a one-rank NCCL group and a 1x1 ``("data", "model")`` mesh on the card.
@@ -2692,7 +2700,7 @@ def dryrun_phase(seed: int, smi_line: str, dev=None) -> dict:
     from repro_torch.configs.base import SHAPE_CELLS, ShapeCell
     from repro_torch.kernels import cuda_lib
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import LINK_BW, make_host_mesh
     from repro_torch.launch.roofline import render
     from repro_torch.models import Rules, build
     from repro_torch.train.step import init_train_state, make_train_step
@@ -2740,8 +2748,33 @@ def dryrun_phase(seed: int, smi_line: str, dev=None) -> dict:
     check(not any(traced.values()) and not any(counted().values()),
           f"phase 17: a trace on meta launched a kernel: workers "
           f"{json.dumps(traced)}, here {json.dumps(counted())}")
+    # each record on a production mesh is device 0's DTensor program over a
+    # fake group: its collectives counted, by kind
+    ok = [r for r in recs if r["status"] == "ok"]
+    bare = [(r["arch"], r["cell"], r["mesh"]) for r in ok
+            if not (isinstance(r["hlo"]["collective_bytes"], float)
+                    and r["hlo"]["collective_bytes"] > 0
+                    and r["hlo"]["collective_count"]
+                    and r["roofline"]["collective_s"] is not None)]
+    check(not bare, f"phase 17 dry run: records without collectives: {bare}")
     for mesh in ("16x16", "2x16x16"):
+        mine = [r for r in ok if r["mesh"] == mesh]
+        dominant = {t: sum(r["roofline"]["dominant"] == t for r in mine)
+                    for t in ("compute", "memory", "collective")}
+        kinds = {}
+        for r in mine:
+            for k, n in r["hlo"]["collective_count"].items():
+                kinds[k] = kinds.get(k, 0) + n
         say(f"phase 17 dry run, mesh {mesh}:\n" + render(recs, mesh))
+        say(f"phase 17 mesh {mesh}: {len(mine)} records traced in "
+            f"{sum(r['lower_s'] for r in mine):.1f} s of worker time; "
+            f"collective seconds summed "
+            f"{sum(r['roofline']['collective_s'] for r in mine):.4f} "
+            f"(at {LINK_BW / 1e9:.0f} GB/s a card), compute "
+            f"{sum(r['roofline']['compute_s'] for r in mine):.4f}, memory "
+            f"{sum(r['roofline']['memory_s'] for r in mine):.4f}; dominant "
+            f"term: {json.dumps(dominant)}; collectives by kind "
+            f"{json.dumps(kinds)}")
     slow = sorted((r for r in recs if r["status"] == "ok"),
                   key=lambda r: -r["lower_s"])[:5]
     say(f"phase 17 dry-run grid: {len(DRYRUN_ARCHS)} archs ("
@@ -2857,6 +2890,9 @@ def dryrun_phase(seed: int, smi_line: str, dev=None) -> dict:
     check(k5 == {"decode": 0, "prefill": 28, "train": 60},
           f"phase 17: kernel 5's launches a step {k5}, phases 14-15 read "
           f"decode 0, prefill 28 and train 60")
+    # phase 18 starts its NCCL group: no fake group may be left up
+    check(not torch.distributed.is_initialized(),
+          "phase 17 left a default process group up")
     say(f"phase 17 kernel launches on the dry-run path (one counted call "
         f"of each card step): {json.dumps(path)}")
     return path

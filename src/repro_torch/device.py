@@ -8,6 +8,11 @@ and recorded with its name and power limit; these are the ceilings a
 kernel's roofline bound is computed against.
 """
 HBM_BW = 3.35e12                   # B/s, device memory
+# B/s, NVLink 4 out of one card in one direction (18 links of 25 GB/s):
+# the rate the dry run prices every collective's wire bytes at, on every
+# mesh axis ("pod" too, which would cross a slower network), as the
+# reference prices each of its axes at one ICI rate
+LINK_BW = 450e9
 PEAK_FLOPS_FP32 = 67e12            # FLOP/s outside the tensor cores
 PEAK_FLOPS_BF16 = 989e12           # FLOP/s, bf16/f16 on the tensor cores
 PEAK_FLOPS_TF32 = 495e12           # FLOP/s, TF32 on the tensor cores

@@ -7,38 +7,46 @@ into an incremental JSON cache.
         [--force]
 
 The counterpart of `repro.launch.dryrun`, which lowers and compiles each
-step for 256 or 512 TPU chips and reads XLA's per-device memory and HLO.
-The port runs a sharded step as DTensors on a DeviceMesh of real ranks
-(`Rules` given a DeviceMesh), and PyTorch has no SPMD partitioner that
-would emit a per-device program for a mesh it does not have.  So here each
-step is traced once, eagerly, over the mesh's axis sizes (a mapping: no
-DTensor, no rank), on ``meta`` tensors at the cell's global shapes, under
-the op-level walker
-(`repro_torch.launch.hlo_stats`): a host tool that allocates nothing, as
-the reference's dry run is.  A record holds
+step for 256 or 512 TPU chips and reads XLA's per-device program (the
+post-SPMD HLO) and memory.  The port runs a sharded step as DTensors on a
+DeviceMesh (`Rules` given a DeviceMesh), and PyTorch has no SPMD
+partitioner that would emit a per-device program.  So here the step is
+run, eagerly, as device 0 of the mesh runs it: on ``meta`` tensors (no
+allocation) at the cell's shapes, as DTensors laid out by the `Rules`
+specs on a DeviceMesh of the mesh's axes over an in-process fake process
+group of the mesh's size (`repro_torch.launch.mesh.fake_device_mesh`:
+rank 0, collectives that move nothing), under the op-level walker
+(`repro_torch.launch.hlo_stats`), which counts device 0's local ops and
+the collectives DTensor and the model issue.  A host tool that allocates
+nothing, as the reference's dry run is.  Rank 0 stands for every device:
+every rank runs the same ops on its blocks, and the blocks are equal (the
+specs shard only what divides) or, where DTensor splits a dimension that
+does not divide, rank 0's is the largest, ceil(n / g), the block the
+reference pads every device's to.  On one card (`make_host_mesh(1, 1)`)
+the step runs on plain tensors, with no group.  A record holds, per
+device:
 
-* exact on any mesh: each device's argument, output and donated (alias)
-  bytes, from the `Rules` specs of the parameters, the optimizer state,
-  the batch and the cache; ``sharding_fallbacks``, the fallbacks those
-  specs take (the reference's list also carries those of the activation
-  constraints its trace meets); ``model_flops_*`` and ``skip_reason``'s
-  verdict, the reference's;
-* an even split across the mesh: the step's FLOPs and bytes divided by the
-  card count (XLA's per-device count is higher where a dimension falls back
-  to replication), and ``temp_bytes``, the trace's peak of live
-  intermediates divided by the batch's shard count;
-* the collectives: exact (0) on one device; on a mesh of more than one,
-  null and named "not modelled": the trace over a mapping redistributes
-  nothing, and counting the DTensor program's collectives is still open
-  (ROADMAP.md);
+* each device's argument, output and donated (alias) bytes, from the
+  `Rules` specs of the parameters, the optimizer state, the batch and the
+  cache; ``sharding_fallbacks``, the fallbacks those specs take (the
+  reference's list also carries those of the activation constraints its
+  trace meets); ``model_flops_*`` and ``skip_reason``'s verdict, the
+  reference's;
+* device 0's FLOPs and bytes, ``temp_bytes`` (its peak of live
+  intermediates), and its collectives: their wire bytes at the reference's
+  ring factors, by kind, and their counts;
+* the roofline: the FLOPs at `PEAK_FLOPS_BF16`, the bytes at `HBM_BW` and
+  the collective bytes at `LINK_BW` (NVLink, one rate on every axis, as
+  the reference prices each of its axes at one ICI rate), and the
+  dominant term among the three;
 * null where the port has no counterpart: ``compile_s`` (nothing is
   compiled; ``lower_s`` is the trace's seconds) and ``xla_cost_analysis``.
 
 On ``meta`` a model takes its CPU route: train and prefill attention are
 `chunked_attention`, not kernel 5, so the walker counts the chunked form's
-operations and no kernel of the repository launches.  The roofline prices
-the per-device FLOPs at `PEAK_FLOPS_BF16` and the bytes at `HBM_BW`, the
-card's (`repro_torch.device`).
+operations and no kernel of the repository launches.  DTensor's own host
+work (sharding propagation, index arithmetic on CPU tensors) is not
+counted.
 """
 from __future__ import annotations
 
@@ -58,13 +66,11 @@ from ..models import Model, Rules, build
 from ..train.step import make_abstract_train_state, make_train_step
 from ..tree import tree_leaves, tree_map
 from . import hlo_stats
-from .mesh import HBM_BW, PEAK_FLOPS_BF16, make_production_mesh
+from .mesh import (HBM_BW, LINK_BW, PEAK_FLOPS_BF16, fake_device_mesh,
+                   make_production_mesh)
 
 #: bytes of one pointer in XLA's tuple of a step's output buffers
 _TUPLE = 8
-#: what a record says of the collectives on a mesh of more than one device
-NOT_MODELLED = ("not modelled: the port issues no collective for a sharded "
-                "model")
 
 
 def skip_reason(arch: str, cell: ShapeCell) -> Optional[str]:
@@ -110,15 +116,6 @@ def mesh_tag(mesh: Mapping[str, int]) -> str:
     return "x".join(str(int(n)) for n in mesh.values())
 
 
-class _TraceRules(Rules):
-    """The cell's rules for a trace on ``meta``: the mesh's divisibility
-    (the MoE's groups are the batch's shards) and no layout to impose, so
-    `constrain` is the identity on any mesh."""
-
-    def constrain(self, x, *names):
-        return x
-
-
 def _per_device(rules: Rules, tree, specs) -> int:
     """Bytes one device holds of ``tree`` laid out by ``specs``."""
     total = 0
@@ -147,13 +144,20 @@ def _logits_abstract(model: Model, cell: ShapeCell) -> torch.Tensor:
                        dtype=dtype, device="meta")
 
 
+def _serve_batch_spec(rules: Rules, batch) -> Dict:
+    """A serving step's batch laid out as the server lays it out."""
+    names = {"tokens": ("batch", "seq"), "frames": ("batch", "seq", None),
+             "pos": ()}
+    return {k: rules.spec(v.shape, names[k][:len(v.shape)])
+            for k, v in batch.items()}
+
+
 def step_memory(arch: str, cell: ShapeCell, mesh: Mapping[str, int],
-                multi_pod: bool = False) -> Tuple[Dict[str, int], int, Rules]:
+                multi_pod: bool = False) -> Tuple[Dict[str, int], Rules]:
     """Each device's argument, output and alias bytes of the cell's step on
-    ``mesh``, from the specs alone (no trace), the batch's shard count, and
-    the rules, whose ``dropped`` lists the specs' fallbacks in the
-    reference's order: parameters, optimizer state (or cache), batch,
-    logits.  The train step donates its state, a serving step its cache.
+    ``mesh``, from the specs alone (no trace), and the rules, whose
+    ``dropped`` lists the specs' fallbacks in the reference's order:
+    parameters, optimizer state (or cache), batch, logits.  The train step donates its state, a serving step its cache.
     The output bytes count XLA's tuple of output buffers too, a pointer of
     `_TUPLE` bytes a leaf, as the reference's ``output_size_in_bytes``
     does."""
@@ -176,10 +180,7 @@ def step_memory(arch: str, cell: ShapeCell, mesh: Mapping[str, int],
         pspecs = model.param_specs(rules)
         cspecs = model.cache_specs(B, S, rules)
         batch = batch_abstract(cfg, cell, cell.kind)
-        names = {"tokens": ("batch", "seq"), "frames": ("batch", "seq", None),
-                 "pos": ()}
-        bspec = {k: rules.spec(v.shape, names[k][:len(v.shape)])
-                 for k, v in batch.items()}
+        bspec = _serve_batch_spec(rules, batch)
         logits = _logits_abstract(model, cell)
         lspec = rules.spec(logits.shape, ("batch", None, "vocab_act"))
         cache = model.abstract_cache(B, S)
@@ -192,9 +193,7 @@ def step_memory(arch: str, cell: ShapeCell, mesh: Mapping[str, int],
                "output_bytes": (_per_device(rules, logits, lspec) + cache_b
                                 + _TUPLE * leaves),
                "alias_bytes": cache_b}
-    axes = bspec["tokens"][0]
-    axes = axes if isinstance(axes, tuple) else (axes,) if axes else ()
-    return mem, math.prod(int(rules.mesh[a]) for a in axes), rules
+    return mem, rules
 
 
 def _loops(model: Model, cell: ShapeCell):
@@ -210,33 +209,55 @@ def _loops(model: Model, cell: ShapeCell):
     return loops
 
 
-def lower_cell(arch: str, cell: ShapeCell, mesh: Mapping[str, int],
-               multi_pod: bool):
-    """Trace the cell's step on ``meta`` under the walker: the train step
-    from `make_train_step`, or the prefill or decode forward.  Returns
-    the whole step's `HloStats` (global, not per device) and the rules of
-    the trace."""
-    model, spec_rules = _setup(arch, cell, mesh, multi_pod)
-    rules = _TraceRules(spec_rules.mesh, dict(spec_rules.table))
+def _walk(model: Model, cell: ShapeCell, rules: Rules, lay_out):
+    """The cell's step under the walker, its arguments made on ``meta`` and
+    passed through ``lay_out(tree, specs)``."""
     cfg = model.cfg
     if cell.kind == "train":
-        step = make_train_step(model, rules).step_fn
-        state = {"params": model.abstract_params(),
-                 "opt": make_abstract_train_state(model)["opt"]}
-        stats = hlo_stats.analyze(step, state,
-                                  batch_abstract(cfg, cell, "train"))
-    else:
-        params = model.abstract_params()
-        cache = model.abstract_cache(cell.global_batch, cell.seq_len)
-        batch = batch_abstract(cfg, cell, cell.kind)
+        bundle = make_train_step(model, rules)
+        state = lay_out({"params": model.abstract_params(),
+                         "opt": make_abstract_train_state(model)["opt"]},
+                        bundle.state_specs)
+        batch = batch_abstract(cfg, cell, "train")
+        return hlo_stats.analyze(bundle.step_fn, state,
+                                 lay_out(batch, bundle.batch_spec(batch)))
+    B, S = cell.global_batch, cell.seq_len
+    params = lay_out(model.abstract_params(), model.param_specs(rules))
+    cache = lay_out(model.abstract_cache(B, S),
+                    model.cache_specs(B, S, rules))
+    batch = batch_abstract(cfg, cell, cell.kind)
+    # the server passes the position as it is (a host scalar), the rest
+    # laid out
+    batch = dict(lay_out(batch, _serve_batch_spec(rules, batch)),
+                 **{k: v for k, v in batch.items() if k == "pos"})
 
-        @torch.no_grad()
-        def serve_step(params, batch, cache):
+    @torch.no_grad()
+    def serve_step(params, batch, cache):
+        with rules.context():
             if cell.kind == "prefill":
                 return model.prefill_fn(params, batch, rules, cache)
             return model.decode_fn(params, batch, cache, rules)
 
-        stats = hlo_stats.analyze(serve_step, params, batch, cache)
+    return hlo_stats.analyze(serve_step, params, batch, cache)
+
+
+def lower_cell(arch: str, cell: ShapeCell, mesh: Mapping[str, int],
+               multi_pod: bool):
+    """Trace the cell's step on ``meta`` under the walker: the train step
+    from `make_train_step`, or the prefill or decode forward.  On one card
+    the step runs on plain tensors; on more, as DTensors over a fake mesh
+    of ``mesh``'s axes (`fake_device_mesh`), so the walker counts device
+    0's program: its local ops and the collectives DTensor and the model
+    issue.  Returns that program's `HloStats` (per device) and the rules
+    of the trace."""
+    model, rules = _setup(arch, cell, mesh, multi_pod)
+    if math.prod(int(n) for n in mesh.values()) == 1:
+        stats = _walk(model, cell, rules, lambda tree, specs: tree)
+    else:
+        with fake_device_mesh(mesh) as dmesh:
+            rules = Rules.make(dmesh, model.par)
+            stats = _walk(model, cell, rules, lambda tree, specs: tree_map(
+                rules.distribute_spec, tree, specs))
     stats.loops = _loops(model, cell)
     return stats, rules
 
@@ -247,21 +268,16 @@ def cell_record(arch: str, cell: ShapeCell, mesh: Mapping[str, int],
     (any mesh of axis sizes: `make_host_mesh(1, 1)` is the one card),
     without the skip check or the cache: what `run_cell` records."""
     chips = math.prod(int(n) for n in mesh.values())
-    mem, batch_shards, rules = step_memory(arch, cell, mesh, multi_pod)
+    mem, rules = step_memory(arch, cell, mesh, multi_pod)
     t0 = time.time()
     st, _ = lower_cell(arch, cell, mesh, multi_pod)
     t_lower = time.time() - t0
-    flops, nbytes = st.flops / chips, st.bytes / chips
-    coll = 0.0 if chips == 1 else None
-    temp = st.peak_live_bytes / batch_shards
+    temp = st.peak_live_bytes
     mf = model_flops(arch, cell)
-    terms = {"compute": flops / PEAK_FLOPS_BF16, "memory": nbytes / HBM_BW,
-             "collective": coll}
-    dominant = max(((k, v) for k, v in terms.items() if v is not None),
-                   key=lambda kv: kv[1])[0]
-    hlo = st.as_dict()
-    hlo.update(flops=flops, bytes=nbytes, collective_bytes=coll)
-    rec = {
+    terms = {"compute": st.flops / PEAK_FLOPS_BF16,
+             "memory": st.bytes / HBM_BW,
+             "collective": st.collective_bytes / LINK_BW}
+    return {
         "status": "ok",
         "chips": chips,
         "lower_s": round(t_lower, 2),
@@ -270,21 +286,19 @@ def cell_record(arch: str, cell: ShapeCell, mesh: Mapping[str, int],
             mem["argument_bytes"] + temp + mem["output_bytes"]
             - mem["alias_bytes"])),
         "xla_cost_analysis": None,
-        "hlo": hlo,
+        "hlo": st.as_dict(),
         "model_flops_global": mf,
         "model_flops_per_device": mf / chips,
         "roofline": {
             "compute_s": terms["compute"],
             "memory_s": terms["memory"],
-            "collective_s": coll,
-            "dominant": dominant,
-            "useful_flops_ratio": (mf / chips) / flops if flops else None,
+            "collective_s": terms["collective"],
+            "dominant": max(terms.items(), key=lambda kv: kv[1])[0],
+            "useful_flops_ratio": ((mf / chips) / st.flops if st.flops
+                                   else None),
         },
         "sharding_fallbacks": rules.dropped,
     }
-    if chips > 1:
-        rec["collectives"] = NOT_MODELLED
-    return rec
 
 
 def run_cell(arch: str, cell_name: str, multi_pod: bool, out_dir: pathlib.Path,

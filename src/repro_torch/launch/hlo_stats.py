@@ -29,16 +29,21 @@ host.  Per op:
                       slices (twice) and whole stacked operands read inside
                       it.  So neither count bounds the other: on a 4-layer
                       scan of ``tanh(c @ w)`` this one is 0.60 of the
-                      reference's, on qwen2-7b's decode, prefill and train
-                      step (B = 4, S = 256, a 2×2 mesh) 0.041, 0.141 and
-                      0.995 (`tests/test_torch_launch.py`)
-    collective bytes  the c10d ops ``fn`` issues (all-reduce, all-gather,
-                      reduce-scatter, all-to-all, and a ``send`` as a
-                      collective-permute, whose ``recv`` end is its peer's),
+                      reference's, on device 0 of qwen2-7b's decode,
+                      prefill and train step (B = 4, S = 256, a 2×2 mesh)
+                      0.26, 0.38 and 1.23 (`tests/test_torch_launch.py`)
+    collective bytes  the collectives ``fn`` issues: the c10d ops
+                      (all-reduce, all-gather, reduce-scatter, all-to-all,
+                      and a ``send`` as a collective-permute, whose
+                      ``recv`` end is its peer's) and the functional ones
+                      DTensor issues (``_c10d_functional``, and
+                      ``_dtensor.shard_dim_alltoall`` as an all-to-all),
                       the operand's bytes times the reference's ring factor
                       for the group's size: all-gather g−1, all-reduce
                       2(g−1)/g, reduce-scatter and all-to-all (g−1)/g,
-                      collective-permute 1
+                      collective-permute 1.  A collective has no FLOPs; its
+                      bytes are the tensors it reads and writes;
+                      ``wait_tensor`` has neither
     peak live bytes   the most bytes held at once by storages that ops made
                       during the call, less those the call returns (the
                       dry run's temp bytes)
@@ -47,17 +52,29 @@ Python loops run unrolled, so a layer loop is counted as often as it runs:
 the property the reference recovers from each ``while`` loop's trip count
 holds by construction.  `HloStats.loops` is left for the caller to fill
 where the model exposes its loop (the dry run records the layer count).
-Every number is for the whole call on the device its tensors are on.
+Every number is for the whole call on the device its arguments' tensors
+are on; ops on no tensor of that device are the host's and are not
+counted.
+
+A DTensor's op is handed back to DTensor (the walker returns
+``NotImplemented`` for it), which redistributes its operands, issuing
+functional collectives, and runs the local op on this rank's blocks: both
+come back to the walker, so on a DeviceMesh over a fake process group
+(`repro_torch.launch.mesh.fake_device_mesh`) a call is counted as rank 0
+runs it.  The ops DTensor runs on fake tensors to work out shapes are not
+counted.
 """
 from __future__ import annotations
 
 import weakref
 from array import array
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (
+    TorchDispatchMode, is_traceable_wrapper_subclass,
+    is_traceable_wrapper_subclass_type)
 from torch.utils.flop_counter import flop_registry
 
 _aten = torch.ops.aten
@@ -86,6 +103,24 @@ _C10D = {
     "alltoall_base_": ("all-to-all", 1),
     "send": ("collective-permute", 0),
 }
+#: functional collectives, the ops DTensor issues, by namespace and name:
+#: the reference's collective (each reads its first argument, a tensor or a
+#: list of them, and returns a new one; ``wait_tensor`` and the autograd
+#: wrappers move nothing)
+_FUNCTIONAL = {
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "all_gather_into_tensor_coalesced"): "all-gather",
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_reduce_coalesced"): "all-reduce",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "reduce_scatter_tensor_coalesced"): "reduce-scatter",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    # a Shard(i) -> Shard(j) redistribute on a mesh that is not the CPU's
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
+}
+#: the namespaces of collective ops: none has FLOPs
+_COLLECTIVE_NS = frozenset({"c10d", "_c10d_functional",
+                            "_c10d_functional_autograd", "_dtensor"})
 
 
 def _ring_factor(kind: str, g: int) -> float:
@@ -118,6 +153,15 @@ def _group_size(args) -> int:
     import torch.distributed as dist
     group = next(a for a in args if isinstance(a, torch.ScriptObject))
     return dist.ProcessGroup.unbox(group).size()
+
+
+def _named_group_size(args) -> int:
+    """The process group's size from a functional collective's arguments:
+    the group is named by its last argument, a string (or the group)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    group = args[-1]
+    return (_resolve_process_group(group) if isinstance(group, str)
+            else group).size()
 
 
 @dataclass
@@ -200,9 +244,12 @@ class _Walker(TorchDispatchMode):
     of a dry run repeat each other's).  What is kept depends on the
     arguments alone, so it is kept across calls."""
 
-    def __init__(self, stats: HloStats):
+    def __init__(self, stats: HloStats, device: Optional[str] = None):
         super().__init__()
         self.stats = stats
+        #: the device type of the program: ops on no tensor of it are the
+        #: host's (DTensor's own index arithmetic) and are not counted
+        self.device = device
         self.serial = 0
         self.live: Dict[int, int] = {}       # storage key -> serial
         self.tags = array("q")               # serial of each event
@@ -227,12 +274,28 @@ class _Walker(TorchDispatchMode):
             self.sizes.append(n)
             weakref.finalize(st, self._freed, key, self.serial, n)
 
-    def _collective(self, func, args) -> None:
-        entry = _C10D.get(func._overloadpacket.__name__)
-        if entry is None:
-            return
-        kind, at = entry
-        cb = _nbytes(args[at]) * _ring_factor(kind, _group_size(args))
+    def _collective(self, func, args, kwargs):
+        """Run a collective op: the reference's collective it is, counted
+        with its ring factor, the tensors it reads and writes as bytes, and
+        no FLOPs."""
+        ns, name = func.namespace, func._overloadpacket.__name__
+        if ns == "c10d":
+            entry = _C10D.get(name)
+            if entry is not None:
+                kind, at = entry
+                self._wire(kind, _nbytes(args[at]), _group_size(args))
+                self._count(0, _nbytes(args))
+            return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        kind = _FUNCTIONAL.get((ns, name))
+        if kind is not None:
+            self._wire(kind, _nbytes(args[0]), _named_group_size(args))
+            self._count(0, _nbytes(args[0]) + _nbytes(out))
+            self._made(out, set())
+        return out
+
+    def _wire(self, kind: str, operand: int, g: int) -> None:
+        cb = operand * _ring_factor(kind, g)
         st = self.stats
         st.collective_bytes += cb
         st.per_collective[kind] = st.per_collective.get(kind, 0.0) + cb
@@ -255,10 +318,17 @@ class _Walker(TorchDispatchMode):
         self.stats.bytes += nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t is not torch.Tensor for t in types):
+            if any(map(is_traceable_wrapper_subclass_type, types)):
+                # a DTensor: its own dispatch runs the local ops, which
+                # come back here and are counted at their shapes
+                return NotImplemented
+            # a FakeTensor: DTensor's sharding propagation working out
+            # shapes, which no device runs
+            return func(*args, **(kwargs or {}))
         kwargs = kwargs or {}
-        if func.namespace == "c10d":
-            self._collective(func, args)
-            return func(*args, **kwargs)
+        if func.namespace in _COLLECTIVE_NS:
+            return self._collective(func, args, kwargs)
         if func.is_view or func in _NO_COST:
             return func(*args, **kwargs)
         sig = _key(func, args, kwargs)
@@ -276,6 +346,10 @@ class _Walker(TorchDispatchMode):
         inputs.update(t.untyped_storage()._cdata
                       for t in _tensors(list(kwargs.values())))
         out = func(*args, **kwargs)
+        if self.device is not None and not any(
+                t.device.type == self.device
+                for t in _tensors([out, args, list(kwargs.values())])):
+            return out
         cost = self._cost(func, args, kwargs, out)
         self._count(*cost)
         self._made(out, inputs)
@@ -300,29 +374,40 @@ class _Walker(TorchDispatchMode):
         return peak
 
 
-def analyze(fn, *args, **kwargs) -> HloStats:
-    """Call ``fn(*args, **kwargs)`` under the walker and return what it
-    counted.  ``peak_live_bytes`` leaves out the storages of the tensors
-    ``fn`` returns that cover their whole storage (a returned view of a
-    larger intermediate keeps that intermediate counted)."""
-    stats = HloStats()
-    walker = _Walker(stats)
-    with walker:
-        out = fn(*args, **kwargs)
-    returned = set()
-    stack = [out]
+def _leaves(tree):
+    """The tensors of a tree of dicts, lists and tuples, a DTensor as its
+    local block."""
+    stack = [tree]
     while stack:
         x = stack.pop()
         if isinstance(x, dict):
-            stack.extend(x.values())
+            stack.extend(reversed(list(x.values())))
         elif isinstance(x, (list, tuple)):
-            stack.extend(x)
+            stack.extend(reversed(x))
+        elif is_traceable_wrapper_subclass(x):      # a DTensor: its block
+            stack.extend(getattr(x, n) for n in x.__tensor_flatten__()[0])
         elif isinstance(x, torch.Tensor):
-            st = x.untyped_storage()
-            serial = walker.live.get(st._cdata)
-            if serial is not None and (x.numel() * x.element_size()
-                                       == st.nbytes()):
-                returned.add(serial)
+            yield x
+
+
+def analyze(fn, *args, **kwargs) -> HloStats:
+    """Call ``fn(*args, **kwargs)`` under the walker and return what it
+    counted: the ops on the device of its arguments' tensors (every op
+    where it has none).  ``peak_live_bytes`` leaves out the storages of
+    the tensors ``fn`` returns that cover their whole storage (a returned
+    view of a larger intermediate keeps that intermediate counted)."""
+    stats = HloStats()
+    first = next(_leaves([args, kwargs]), None)
+    walker = _Walker(stats, None if first is None else first.device.type)
+    with walker:
+        out = fn(*args, **kwargs)
+    returned = set()
+    for x in _leaves(out):
+        st = x.untyped_storage()
+        serial = walker.live.get(st._cdata)
+        if serial is not None and (x.numel() * x.element_size()
+                                   == st.nbytes()):
+            returned.add(serial)
     stats.peak_live_bytes = float(walker.peak(returned))
     del out
     return stats

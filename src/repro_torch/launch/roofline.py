@@ -7,8 +7,7 @@ CLI (renders the dry-run cache's tables, `repro_torch.launch.dryrun`)::
         [--cache results/dryrun_torch] [--markdown]
 
 `render` is the reference's table; a term the port's dry run records as
-null (the collectives on a mesh of more than one card, ``compile_s``) is an
-empty cell.
+null (``compile_s``) is an empty cell.
 
 `predict_report_cost` is the analytic half of the DSE Pareto frontier
 (`repro_torch.dse`): given one design point's `AnalysisReport` it prices the
@@ -25,7 +24,8 @@ the DSE pairs it with measured generated-kernel time
 The rates are the card's (`repro_torch.device`): device memory at
 `HBM_BW`, shared memory at `SMEM_BW`, and the design points' arithmetic at
 `PEAK_FLOPS_FP32`, since the ring kernels compute in float32 on the CUDA
-cores, not on the tensor cores; the dry run's at `PEAK_FLOPS_BF16`.
+cores, not on the tensor cores; the dry run's at `PEAK_FLOPS_BF16`, its
+collectives' wire bytes at `LINK_BW`.
 """
 import argparse
 import json
@@ -33,7 +33,8 @@ import pathlib
 import warnings
 from typing import Any, Dict, List, Mapping, Tuple
 
-from ..device import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_FP32, SMEM_BW
+from ..device import (HBM_BW, LINK_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_FP32,
+                      SMEM_BW)
 
 #: bytes per streamed token (the analyses carry f32 channel values)
 TOKEN_BYTES = 4
@@ -140,7 +141,8 @@ def main() -> None:
         print(f"### mesh {mesh} "
               f"(cards={'512' if mesh == '2x16x16' else '256'}, "
               f"H100 SXM: {PEAK_FLOPS_BF16/1e12:.0f} TF/s bf16, "
-              f"{HBM_BW/1e9:.0f} GB/s HBM; collectives not modelled)")
+              f"{HBM_BW/1e9:.0f} GB/s HBM, {LINK_BW/1e9:.0f} GB/s "
+              f"NVLink)")
         print(render(recs, mesh, args.markdown))
         print()
     if skipped:

@@ -145,6 +145,13 @@ def cross_entropy(logits, labels, vocab_size: int) -> torch.Tensor:
     """Mean next-token loss, fp32, numerically stable."""
     logits = logits.float()
     m = logits.amax(-1, keepdim=True).detach()
+    if is_dtensor(m):
+        # the max over a sharded vocabulary, made whole on every rank once:
+        # PyTorch 2.11's DTensor cannot add its partial max to the partial
+        # sum below
+        from torch.distributed.tensor import Replicate
+        m = m.redistribute(m.device_mesh, [
+            Replicate() if p.is_partial() else p for p in m.placements])
     shifted = logits - m
     lse = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
     gold = _pick(shifted, labels) + m[..., 0]

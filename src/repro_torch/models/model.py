@@ -244,10 +244,12 @@ class Model:
 
     # ------------------------------------------------------- layer loop
     def _scan_layers(self, body, x, cache, stacked_params, mode: str,
-                     two_level: bool = True):
+                     rules: Rules, two_level: bool = True):
         """Run ``body(lp, i, x, cache) -> (x, aux, cache)`` over the
         stacked layers, the reference's ``lax.scan`` with the cache in the
-        carry.  Train mode under autograd: remat (two-level where
+        carry, each layer's weights gathered over the fsdp axes where it
+        runs (`Rules.gather_fsdp`; inside remat, so the recompute gathers
+        again, as XLA's does).  Train mode under autograd: remat (two-level where
         ``two_level`` and ``remat_block`` divides L).  A train forward with
         a cache (which the layers write in place) is not rematerialized: its
         recompute would read the cache after the first forward wrote it."""
@@ -255,17 +257,18 @@ class Model:
         L = tree_leaves(stacked_params)[0].shape[0]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
+        def layer_params(i):
+            return rules.gather_fsdp(tree_map(lambda a: a[i], stacked_params))
+
         def step(i, x):
-            lp = tree_map(lambda a: a[i], stacked_params)
-            x, a, _ = body(lp, i, x, None)
+            x, a, _ = body(layer_params(i), i, x, None)
             return x, a
 
         use_remat = (par.remat == "full" and mode == "train"
                      and cache is None and torch.is_grad_enabled())
         if not use_remat:
             for i in range(L):
-                lp = tree_map(lambda a: a[i], stacked_params)
-                x, a, cache = body(lp, i, x, cache)
+                x, a, cache = body(layer_params(i), i, x, cache)
                 aux = aux + a
             return x, aux, cache
 
@@ -316,7 +319,7 @@ class Model:
             return x, aux, cache
 
         x, aux, cache = self._scan_layers(body, x, cache, params["layers"],
-                                          mode)
+                                          mode, rules)
         return x, cache, aux
 
     def _hybrid_stack(self, params, x, positions, rules, mode, cache, kv_len,
@@ -378,7 +381,7 @@ class Model:
             return x, aux, cache
 
         x, aux, cache = self._scan_layers(body, x, cache, params["layers"],
-                                          mode, two_level=False)
+                                          mode, rules, two_level=False)
         return x, cache, aux
 
     def _rwkv_stack(self, params, x, positions, rules, mode, cache, kv_len,
@@ -411,7 +414,7 @@ class Model:
             return x, zero, cache
 
         x, aux, cache = self._scan_layers(body, x, cache, params["layers"],
-                                          mode)
+                                          mode, rules)
         return x, cache, aux
 
     def _encdec_stack(self, params, x, positions, rules, mode, cache, kv_len,
@@ -440,7 +443,7 @@ class Model:
                     zero, cache_
 
             enc_out, _, _ = self._scan_layers(enc_body, e, None,
-                                              params["encoder"], mode)
+                                              params["encoder"], mode, rules)
             enc_out = apply_norm(params["enc_norm"], enc_out, cfg)
 
         # positional embedding for decoder tokens
@@ -474,7 +477,7 @@ class Model:
             return x, zero, cache
 
         x, aux, cache = self._scan_layers(dec_body, x, cache,
-                                          params["decoder"], mode)
+                                          params["decoder"], mode, rules)
         return x, cache, aux
 
 

@@ -36,6 +36,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..configs.base import ParallelConfig
+from ..tree import tree_map
 
 
 def is_device_mesh(mesh) -> bool:
@@ -218,6 +219,29 @@ class Rules:
         if tuple(x.placements) == want:
             return x
         return x.redistribute(self.mesh, want)
+
+    def gather_fsdp(self, tree):
+        """``tree``'s DTensors with their fsdp axes gathered (replicated),
+        their other shards kept: what XLA does with a weight sharded over
+        the fsdp axes where it is used (the reference's fsdp).  The
+        gradient of a gathered weight is reduce-scattered back to its
+        layout.  Elsewhere ``tree`` itself."""
+        if not self.on_mesh:
+            return tree
+        from torch.distributed.tensor import Replicate
+        fsdp = set(self.table["wfsdp"])
+        dims = self.mesh.mesh_dim_names
+
+        def one(x):
+            if not is_dtensor(x):
+                return x
+            want = tuple(Replicate() if d in fsdp else p
+                         for d, p in zip(dims, x.placements))
+            if want == tuple(x.placements):
+                return x
+            return x.redistribute(self.mesh, want)
+
+        return tree_map(one, tree)
 
     def context(self):
         """The context a step runs in: on a DeviceMesh, plain tensors made

@@ -89,12 +89,14 @@ def init_train_state(model: Model, seed: int, device=None,
     card where None), laid out by `make_train_state_specs` where ``rules``
     are on a DeviceMesh."""
     params = model.init(seed, device)
-    if rules is not None and rules.on_mesh:
-        params = model.distribute(params, rules)
-    opt = adamw_init(params, model.par.optimizer_state_dtype)
-    if rules is not None and rules.on_mesh:
-        opt["step"] = rules.distribute(opt["step"], ())
-    return {"params": params, "opt": opt}
+    if rules is None or not rules.on_mesh:
+        return {"params": params,
+                "opt": adamw_init(params, model.par.optimizer_state_dtype)}
+    # every moment laid out by its spec, as a restore lays it out
+    opt = tree_map(rules.distribute_spec,
+                   adamw_init(params, model.par.optimizer_state_dtype),
+                   make_train_state_specs(model, rules)["opt"])
+    return {"params": model.distribute(params, rules), "opt": opt}
 
 
 def _to_mb(x: torch.Tensor, m: int) -> torch.Tensor:
