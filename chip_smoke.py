@@ -17,10 +17,11 @@ failure:
    .fifoize().size().plan().compile(backend="cuda")`` must pick the fused
    ring; T = 1000 runs as 125 chained calls with a time tile of
    steps = block = 8 and must match the PyTorch oracle on the card; each
-   ring launch's shape (CTAs in one cluster or a cooperative grid,
-   threads) is printed, and on jacobi-2d and heat-3d it must span more
-   than one CTA.  The same job forced to ``mode="addressable"`` must
-   match too, in exactly 1000 launches queued from C by one call.
+   ring launch's shape (CTAs in one cluster, a cooperative grid, or blocks
+   in flight across the card; threads) is printed, and on jacobi-2d and
+   heat-3d it must span more than one CTA.  The same job forced to
+   ``mode="addressable"`` must match too, in exactly 1000 launches queued
+   from C by one call.
    Then ``validate(backend="cuda")`` must give 14/17/35 replays and 3/8/12
    negative rejections (its host clock, the analysis time users wait on,
    is printed), and a wrong plan must raise.  The counts are read here:
@@ -29,19 +30,21 @@ failure:
    oracle, at a small size.
 4. Each kernel is held against its plain PyTorch version on the same
    inputs: at small shapes (block = 1 and the injections included, the
-   ring in each launch mode, its rows over several CTAs; the addressable
-   job entry point against chained plain steps) and at the main path's
-   shapes.  A ring cluster or grid that cannot be placed must raise and
-   leave the next launch clean.  The replay is held to its sequential walk
-   exactly, on every channel's list in the three disciplines and on seeded
-   random lists of one to three tiles and 7 events more (rings of 1 to
-   1024 slots and one past what the kernel keeps in shared memory, NOOPs
-   mixed in).
+   ring in each launch mode that takes the ring, its rows or its blocks
+   over several CTAs; the addressable job entry point against chained
+   plain steps) and at the main path's shapes.  A ring cluster or grid
+   that cannot be placed must raise and leave the next launch clean.  The
+   replay is held to its sequential walk exactly, on every channel's list
+   in the three disciplines and on seeded random lists of one to three
+   tiles and 7 events more (rings of 1 to 1024 slots and one past what
+   the kernel keeps in shared memory, NOOPs mixed in).
 5. Each kernel is timed with CUDA events at the main path's shapes, beside
    its plain version, its bound and, where one PyTorch call computes the
-   same function, that call.  The addressable step's call and its library
-   call are timed in turns over five rounds (min / median / max), and its
-   1000-step job also as a replayed CUDA graph.
+   same function, that call; the ring also in every launch mode the
+   geometry takes, each forced and bit-equal to the path's own.  The
+   addressable step's call and its library call are timed in turns over
+   five rounds (min / median / max), and its 1000-step job also as a
+   replayed CUDA graph.
 6. Fig. 3, with the counts set to 0 first: jacobi-1d at EXTRALARGE
    (N = 4000, T = 1000) as 125 chained ``jacobi_fifo_op`` calls at
    steps = block = 8 (the generated ring's tile) must equal phase 2's ring
@@ -3320,7 +3323,7 @@ def main() -> int:
         check(c.mode == "fifo-ring", f"{name}: {c.describe()}")
         x = on_card(shape)
         inputs[name] = x
-        shapes[name] = cg.ring_launch(shape, BLOCK, STEPS + 1, 2, card)
+        shapes[name] = cg.ring_launch(shape, BLOCK, STEPS + 1, 2, card, STEPS)
         say(f"phase 2 {name} ring launch: {shapes[name].describe()}")
         check(name == "jacobi-1d" or shapes[name].ctas > 1,
               f"{name}: the ring runs on one CTA")
@@ -3419,9 +3422,14 @@ def main() -> int:
         for block, (depth, halo), mode in itertools.product(
                 blocks, ((steps + 1, 2), ((steps + 1) // 2, 2),
                          (steps + 1, 1)), cg.RING_MODES):
+            # the wave takes full rings of blocks of 2 to 8 items: the
+            # others go through the mode ring_launch gives them
+            takes = mode != "wave" or (depth > steps and halo == 2
+                                       and 2 <= block <= cg.WAVE_ITEMS)
             got = cg._ring_stencil_with(
                 x, p, steps, block, depth, halo,
-                cg._ring_launch(shape, block, depth, halo, card, mode=mode))
+                cg._ring_launch(shape, block, depth, halo, card,
+                                mode=mode if takes else None, steps=steps))
             want = cg._ring_plain(x, p, steps, block, depth, halo)
             e = max_err(got, want)
             check(close(got, want), f"ring {name} {shape} block {block} "
@@ -3435,7 +3443,7 @@ def main() -> int:
             check(close(got, want), f"addressable job {name} {shape} "
                   f"steps {n_steps}: {max_err(got, want)}")
     ctas_in = lambda shape, steps, m: cg._ring_launch(
-        shape, steps, steps + 1, 2, card, mode=m).ctas
+        shape, steps, steps + 1, 2, card, mode=m, steps=steps).ctas
     wide = "; ".join(
         f"{name} {shape}: " + ", ".join(
             f"{ctas_in(shape, steps, m)} in {m}" for m in cg.RING_MODES)
@@ -3544,14 +3552,20 @@ def main() -> int:
         out = torch.empty_like(x)
         out2 = torch.empty_like(x)
         shape = shapes[name]
-        scratch = torch.empty(shape.scratch_floats, device=dev)
+        if shape.mode == "wave":      # the wrapper's channels and flags
+            flags, scratch = cg._wave_channels(
+                x.device, cuda_lib.raw_stream(x.device), shape)
+            flags = flags.data_ptr()
+        else:
+            flags = None
+            scratch = torch.empty(shape.scratch_floats, device=dev)
         raw = {
             "ring_stencil": lambda: cuda_lib.RING_STENCIL(
-                x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                x.data_ptr(), out.data_ptr(), scratch.data_ptr(), flags,
                 p.cuda_kind, x.shape[0], d1, d2, STEPS, BLOCK, STEPS + 1, 2,
                 shape.ctas, shape.rows, shape.stride, shape.threads,
-                shape.segments, shape.smem_bytes, int(shape.mode == "grid"),
-                stream),
+                shape.segments, shape.cols, shape.smem_bytes,
+                cg.RING_MODES.index(shape.mode), stream),
             # ADDR_REPS launches queued back to back by one C call
             "addressable_step": lambda: cuda_lib.ADDRESSABLE_STEP(
                 x.data_ptr(), out.data_ptr(), out2.data_ptr(), p.cuda_kind,
@@ -3578,11 +3592,32 @@ def main() -> int:
                 "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                 "shape": list(x.shape), "steps": STEPS, "block": BLOCK}
             if kernel == "ring_stencil":
+                # every launch mode the geometry takes, forced, each call
+                # bit-equal to the path's own
+                mode_ms = {}
+                for m in cg.RING_MODES:
+                    try:
+                        forced = cg._ring_launch(tuple(x.shape), BLOCK,
+                                                 STEPS + 1, 2, card, mode=m,
+                                                 steps=STEPS)
+                    except ValueError:
+                        continue      # its tiles or its block fit no CTA
+                    call = (lambda L=forced: cg._ring_stencil_with(
+                        x, p, STEPS, BLOCK, STEPS + 1, 2, L))
+                    check(torch.equal(call(), kfn()),
+                          f"ring {name} in {m}: not bit-equal to the path's")
+                    mode_ms[m] = device_ms(call, 5)
+                say(f"phase 5 {name} ring device ms a launch by mode: "
+                    f"{json.dumps(mode_ms)} (the path takes {shape.mode})")
                 row.update(ms=cuda_ms(kfn, 20),
                            device_ms=device_ms(raw[kernel], 5),
                            library_ms=None, mode=shape.mode,
-                           ctas=shape.ctas, threads=shape.threads
-                           * shape.segments, smem_bytes=shape.smem_bytes)
+                           mode_device_ms=mode_ms,
+                           ctas=shape.ctas, threads=(shape.threads + cg.COURIER
+                                                     if shape.mode == "wave"
+                                                     else shape.threads
+                                                     * shape.segments),
+                           smem_bytes=shape.smem_bytes)
             else:
                 # the call and its library call in turns: their ratio has
                 # crossed 1 from run to run

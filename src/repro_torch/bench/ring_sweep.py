@@ -1,12 +1,14 @@
 """The ring kernel's launch shape swept, as built.
 
 Times `runtime.cuda_codegen.ring_stencil`'s kernel (``csrc/ring_stencil.cu``)
-at its default launch with 8, 4, 2 and 1 items a thread, and in each launch
-mode: 2, 4, 8 and 16 CTAs in one cluster with the tiles in shared memory,
-where they fit, and 16 to 132 CTAs in a cooperative grid with the tiles in
-the scratch.  At the main path's shapes (PolyBench EXTRALARGE jacobi-2d and
-heat-3d, time tile steps = block = 8), one launch at a time with CUDA
-events; every output must equal the kernel's at its default launch exactly.
+at its cluster or grid launch with 8, 4, 2 and 1 items a thread, and in
+each launch mode: 2, 4, 8 and 16 CTAs in one cluster with the tiles in
+shared memory, where they fit, 16 to 132 CTAs in a cooperative grid with
+the tiles in the scratch, and 33 to 132 CTAs holding blocks in flight (the
+wave), where a block fits one CTA.  At the main path's shapes (PolyBench
+EXTRALARGE jacobi-2d and heat-3d, time tile steps = block = 8), one launch
+at a time with CUDA events; every output must equal the kernel's at its
+default launch exactly.
 Needs a CUDA device and ``nvcc``; without a device it exits 2.
 
     PYTHONPATH=src python -m repro_torch.bench.ring_sweep [--seed N]
@@ -25,6 +27,7 @@ SHAPES = {"jacobi-2d": (2800, 2800), "heat-3d": (200, 200, 200)}
 STEPS = BLOCK = 8
 CLUSTERS = (2, 4, 8, 16)
 GRIDS = (16, 33, 66, 132)
+WAVES = (33, 66, 132)
 
 
 def launch_ms(launch, reps: int) -> float:
@@ -61,13 +64,15 @@ def rows(seed: int = 0):
                                           card.max_threads[seg])
             launches.append(("items_a_thread", seg, dataclasses.replace(
                 base, threads=threads, segments=BLOCK // seg)))
-        for mode, counts in (("shared", CLUSTERS), ("grid", GRIDS)):
+        for mode, counts in (("shared", CLUSTERS), ("grid", GRIDS),
+                             ("wave", WAVES)):
             for ctas in counts:
                 try:
                     launches.append(("ctas", ctas, cg._ring_launch(
-                        shape, BLOCK, STEPS + 1, 2, card, ctas, mode)))
+                        shape, BLOCK, STEPS + 1, 2, card, ctas, mode,
+                        steps=STEPS)))
                 except ValueError:
-                    continue              # the tiles pass shared memory
+                    continue              # the tiles or the block fit no CTA
         for knob, value, launch in launches:
             run = lambda: cg._ring_stencil_with(x, p, STEPS, BLOCK,
                                                 STEPS + 1, 2, launch)
@@ -76,9 +81,14 @@ def rows(seed: int = 0):
                 raise AssertionError(f"{stencil} {knob} {value}: differs")
             out.append({"stencil": stencil, knob: value,
                         "mode": launch.mode, "ctas": launch.ctas,
-                        "threads": launch.threads * launch.segments,
+                        "threads": (launch.threads + cg.COURIER
+                                    if launch.mode == "wave"
+                                    else launch.threads * launch.segments),
                         "smem_bytes": launch.smem_bytes,
-                        "levels": (x.shape[0] // BLOCK + 1) * STEPS,
+                        "levels": (-(-(x.shape[0] // BLOCK + 1)
+                                     // launch.ctas) * STEPS
+                                   if launch.mode == "wave" else
+                                   (x.shape[0] // BLOCK + 1) * STEPS),
                         "ms": ms})
     return out
 

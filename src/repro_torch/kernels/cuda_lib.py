@@ -150,10 +150,11 @@ def raw_stream(device) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
-#: kernel 1 — the fused time-tiled ring stencil over one cluster or a
-#: cooperative grid (`csrc/ring_stencil.cu`)
+#: kernel 1 — the fused time-tiled ring stencil over one cluster, a
+#: cooperative grid, or blocks in flight across the card
+#: (`csrc/ring_stencil.cu`)
 RING_STENCIL = CudaKernel("ring_stencil.cu", "ring_stencil_f32",
-                          [_P, _P, _P] + [_I] * 15 + [_P])
+                          [_P, _P, _P, _P] + [_I] * 16 + [_P])
 #: the limits kernel 1's launch shape is cut to on a device (a query that
 #: launches nothing: call it with ``launches=0``)
 RING_LIMITS = CudaKernel("ring_stencil.cu", "ring_stencil_limits", [_I, _P])

@@ -43,6 +43,7 @@ analysis cannot derive).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass, field
@@ -189,29 +190,46 @@ MAX_CLUSTER = 16
 #: items of a block one ring thread may walk (the kernel is built for each)
 SEGMENTS = (8, 4, 2, 1)
 #: where the ring's CTAs are and where their tiles live: one cluster with
-#: the tiles in shared memory, or a cooperative grid of up to one CTA an SM
-#: with them in the L2-resident global scratch
-RING_MODES = ("shared", "grid")
+#: the tiles in shared memory, a cooperative grid of up to one CTA an SM
+#: with them in the L2-resident global scratch, or (``"wave"``) a
+#: cooperative grid of up to one CTA an SM, each holding whole blocks in
+#: flight, the ring handed from CTA to CTA through channels in device
+#: memory
+RING_MODES = ("shared", "grid", "wave")
+#: the wave mode: the columns a thread may hold (the kernel is built for
+#: each), the most items of a block, the courier warp's threads and the
+#: ints from one channel flag to the next (``csrc/ring_stencil.cu``)
+WAVE_COLS = (1, 2, 4)
+WAVE_ITEMS = 8
+COURIER = 32
+FLAG_INTS = 32
+#: ring launches by mode (`RING_MODES`), counted where
+#: `cuda_lib.RING_STENCIL` counts them
+RING_LAUNCHES = collections.Counter()
 
 
 @dataclass(frozen=True)
 class RingCard:
     """What a ring launch shape depends on in the card: its ``sms``, the
-    ``smem_bytes`` of shared memory a CTA may opt in to, and the threads a
+    ``smem_bytes`` of shared memory a CTA may opt in to, the threads a
     CTA of the kernel may have where a thread walks ``seg`` items,
-    ``max_threads[seg]`` (the kernel's launch bound).  `ring_card` reads
-    them from the device and the kernel."""
+    ``max_threads[seg]`` (the kernel's launch bound), and those of the wave
+    mode, its courier's warp included, where a thread holds ``cols``
+    columns, ``wave_threads[cols]``.  `ring_card` reads them from the
+    device and the kernel."""
 
     sms: int
     smem_bytes: int
     max_threads: Dict[int, int]
+    wave_threads: Dict[int, int]
 
 
 @functools.lru_cache(maxsize=None)
 def _ring_card(index: int) -> RingCard:
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 9)()
     cuda_lib.RING_LIMITS(index, out, launches=0)
-    return RingCard(out[0], out[1], {1 << i: out[2 + i] for i in range(4)})
+    return RingCard(out[0], out[1], {1 << i: out[2 + i] for i in range(4)},
+                    {1 << i: out[6 + i] for i in range(3)})
 
 
 def ring_card(device: torch.device) -> RingCard:
@@ -230,7 +248,15 @@ class RingLaunch:
     segments`` items of its columns.  The tile's two ring copies and three
     working rows (each the ring level's ``halo`` items, then the block)
     take ``tile_floats``: in ``smem_bytes`` of shared memory, or, where
-    that is 0, in a global scratch of ``scratch_floats``."""
+    that is 0, in a global scratch of ``scratch_floats``.
+
+    In the wave mode a CTA owns every row of the blocks it takes, one at a
+    time: ``threads`` compute threads (and the courier's warp) of ``cols``
+    neighbouring columns each, every item of the block in registers;
+    ``tile_floats`` are two copies of ``block - 1`` rows of ``stride``
+    floats and 8 zeros, and 4 floats more, in ``smem_bytes``; the channels
+    between the CTAs take ``scratch_floats`` and their flags
+    ``flag_ints``."""
 
     mode: str
     ctas: int
@@ -241,8 +267,15 @@ class RingLaunch:
     tile_floats: int
     smem_bytes: int
     scratch_floats: int
+    cols: int = 1
+    flag_ints: int = 0
 
     def describe(self) -> str:
+        if self.mode == "wave":
+            return (f"{self.ctas} CTA(s) in a cooperative grid, blocks in "
+                    f"flight: {self.threads}+{COURIER} threads of "
+                    f"{self.cols} column(s), {self.smem_bytes} B of shared "
+                    f"memory a CTA, channels of {4 * self.scratch_floats} B")
         where = (f"{self.smem_bytes} B of shared memory a CTA"
                  if self.smem_bytes else
                  f"a {4 * self.scratch_floats} B global scratch")
@@ -254,24 +287,76 @@ class RingLaunch:
 
 
 def ring_launch(shape: Tuple[int, ...], block: int, ring_depth: int,
-                halo: int, card: RingCard) -> RingLaunch:
+                halo: int, card: RingCard,
+                steps: Optional[int] = None) -> RingLaunch:
     """The launch shape of `ring_stencil` for an input of ``shape`` on
-    ``card``: the item's d1 rows spread over one cluster of up to 16 CTAs
+    ``card``, ``steps`` levels a call.  Where the ring is full
+    (``ring_depth > steps``), its halo is two items and one block's rows
+    fit one CTA: blocks in flight across the card, up to one CTA an SM,
+    each holding a whole block, the ring a FIFO from CTA to CTA
+    (``"wave"``; the block's items in a thread's registers, its columns
+    spread over the most threads).  Else, and where ``steps`` is not
+    given: the item's d1 rows spread over one cluster of up to 16 CTAs
     with the tiles in shared memory where they fit there, else over a
-    cooperative grid of up to one CTA an SM.  Threads: the block cut into
-    segments of 8, 4, 2 or 1 items so that a thread walks the fewest
-    columns, with the most threads."""
-    return _ring_launch(shape, block, ring_depth, halo, card)
+    cooperative grid of up to one CTA an SM; the block cut into segments
+    of 8, 4, 2 or 1 items so that a thread walks the fewest columns, with
+    the most threads.  An undersized ring or a narrowed halo needs block
+    j - 1's later levels, which the wave does not hold: those keep the
+    cluster or the grid."""
+    return _ring_launch(shape, block, ring_depth, halo, card, steps=steps)
+
+
+def _wave_launch(shape: Tuple[int, ...], block: int, ring_depth: int,
+                 halo: int, card: RingCard, ctas: Optional[int],
+                 steps: Optional[int]):
+    """The wave mode's `RingLaunch` for this ring, or why it takes none."""
+    if steps is None:
+        return "the ring's steps are not given"
+    if ring_depth < steps + 1:
+        return f"an undersized ring of {ring_depth} levels for {steps} steps"
+    if halo != 2:
+        return f"a halo of {halo} items, not 2"
+    if not 2 <= block <= WAVE_ITEMS:
+        return f"block {block}: a thread holds 2 to {WAVE_ITEMS} items"
+    d1, d2 = _inner_dims(shape)
+    cells = d1 * d2
+    most = WAVE_COLS[-1]
+    if cells > most * (card.wave_threads[most] - COURIER):
+        return f"an item of {cells} cells passes one CTA's threads"
+    for cols in WAVE_COLS:        # the fewest columns a thread, most threads
+        threads = -(-cells // (32 * cols)) * 32
+        if threads + COURIER <= card.wave_threads[cols]:
+            break
+    stride = threads * cols
+    tile = 2 * (block - 1) * (stride + 8) + 4
+    if 4 * tile > card.smem_bytes:
+        return (f"rows of {4 * tile} B pass the {card.smem_bytes} B of "
+                f"shared memory a CTA may hold")
+    blocks = shape[0] // block + steps // block
+    n_ctas = max(1, min(ctas or card.sms, blocks))
+    if n_ctas < 2 and blocks > 1 and steps > 1:
+        return "one CTA would hand the ring to itself"
+    return RingLaunch("wave", n_ctas, d1, stride, threads, 1, tile, 4 * tile,
+                      n_ctas * ring_depth * 2 * cells, cols,
+                      n_ctas * ring_depth * FLAG_INTS)
 
 
 def _ring_launch(shape: Tuple[int, ...], block: int, ring_depth: int,
                  halo: int, card: RingCard, ctas: Optional[int] = None,
-                 mode: Optional[str] = None) -> RingLaunch:
+                 mode: Optional[str] = None,
+                 steps: Optional[int] = None) -> RingLaunch:
     """`ring_launch` with the CTAs capped at ``ctas`` and the mode forced
     to ``mode`` where given: a shape the card may refuse at launch, for
-    the tests and the bench."""
+    the tests and the bench.  Raises ValueError for a mode that cannot
+    run the geometry."""
     if mode not in (None,) + RING_MODES:
         raise ValueError(f"ring mode {mode!r} is none of {RING_MODES}")
+    if mode in (None, "wave"):
+        wave = _wave_launch(shape, block, ring_depth, halo, card, ctas, steps)
+        if isinstance(wave, RingLaunch):
+            return wave
+        if mode == "wave":
+            raise ValueError(f"the wave mode cannot run this ring: {wave}")
     d1, d2 = _inner_dims(shape)
 
     def tiles(most: int):
@@ -344,7 +429,24 @@ def ring_stencil(x: torch.Tensor, program: StencilProgram, steps: int,
     return _ring_stencil_with(
         x, program, steps, block, ring_depth, halo,
         ring_launch(tuple(x.shape), block, ring_depth, halo,
-                    ring_card(x.device)))
+                    ring_card(x.device), steps))
+
+
+#: the wave mode's channels on each (device, stream): [flags, halos], grown
+#: as geometries need them.  Every flag a launch sets it also clears, so
+#: the flags are zeroed once, where they are made.
+_WAVE_CHANNELS: Dict[Tuple[int, int], list] = {}
+
+
+def _wave_channels(device: torch.device, stream: int, shape: RingLaunch):
+    held = _WAVE_CHANNELS.setdefault((device.index, stream), [None, None])
+    if held[0] is None or held[0].numel() < shape.flag_ints:
+        held[0] = torch.zeros(shape.flag_ints, dtype=torch.int32,
+                              device=device)
+    if held[1] is None or held[1].numel() < shape.scratch_floats:
+        held[1] = torch.empty(shape.scratch_floats, dtype=torch.float32,
+                              device=device)
+    return held
 
 
 def _ring_stencil_with(x: torch.Tensor, program: StencilProgram, steps: int,
@@ -354,15 +456,22 @@ def _ring_stencil_with(x: torch.Tensor, program: StencilProgram, steps: int,
     ``shape``."""
     d1, d2 = _inner_dims(x.shape)
     out = torch.empty_like(x)
-    scratch = torch.empty(shape.scratch_floats, dtype=torch.float32,
-                          device=x.device)
+    stream = cuda_lib.raw_stream(x.device)
+    if shape.mode == "wave":
+        flags, scratch = _wave_channels(x.device, stream, shape)
+        flags = flags.data_ptr()
+    else:
+        flags = None
+        scratch = torch.empty(shape.scratch_floats, dtype=torch.float32,
+                              device=x.device)
     with cuda_lib.on_device(x.device):
         cuda_lib.RING_STENCIL(
-            x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), flags,
             program.cuda_kind, x.shape[0], d1, d2, steps, block, ring_depth,
             halo, shape.ctas, shape.rows, shape.stride, shape.threads,
-            shape.segments, shape.smem_bytes, int(shape.mode == "grid"),
-            cuda_lib.raw_stream(x.device))
+            shape.segments, shape.cols, shape.smem_bytes,
+            RING_MODES.index(shape.mode), stream)
+    RING_LAUNCHES[shape.mode] += 1
     return out
 
 

@@ -31,9 +31,9 @@ from repro_torch.runtime.cuda_backend import (  # noqa: E402
     REPLAY_TILE, _build_events, _replay_plain, _replay_walk, replay_events)
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.runtime.cuda_codegen import (  # noqa: E402
-    RING_MODES, STENCIL_PROGRAMS, _addressable_plain, _ring_launch,
-    _ring_plain, _ring_stencil_with, addressable_step, addressable_steps,
-    ring_card, ring_stencil)
+    RING_LAUNCHES, RING_MODES, STENCIL_PROGRAMS, _addressable_plain,
+    _ring_launch, _ring_plain, _ring_stencil_with, addressable_step,
+    addressable_steps, ring_card, ring_launch, ring_stencil)
 
 ATOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -84,24 +84,122 @@ def test_ring_kernel_over_many_ctas_matches_plain_version(name, mode,
                                                           cuda_device):
     """The ring's rows over 13-100 CTAs, in one cluster with the tiles in
     shared memory or in a cooperative grid with them in the global
-    scratch: block 1 and block = steps, each with a full ring, an
-    undersized one and a narrowed halo."""
+    scratch, or its blocks over 9-11 CTAs in the wave: block 1 and block =
+    steps, each with a full ring, an undersized one and a narrowed halo
+    (in the wave mode the rings it does not take, block 1's, the
+    undersized and the narrowed, through the mode `ring_launch` gives)."""
     shape, steps = WIDE[name]
     p = STENCIL_PROGRAMS[name]
     x = torch.from_numpy(np.random.default_rng(9).standard_normal(shape)
                          .astype(np.float32)).to(cuda_device)
     card = ring_card(cuda_device)
-    assert _ring_launch(shape, steps, steps + 1, 2, card,
-                        mode=mode).ctas > 1
+    assert _ring_launch(shape, steps, steps + 1, 2, card, mode=mode,
+                        steps=steps).ctas > 1
     for block in (1, steps):
         for depth, halo in ((steps + 1, 2), ((steps + 1) // 2, 2),
                             (steps + 1, 1)):
+            takes = mode != "wave" or (depth > steps and halo == 2
+                                       and block > 1)
             got = _ring_stencil_with(x, p, steps, block, depth, halo,
                                      _ring_launch(shape, block, depth, halo,
-                                                  card, mode=mode))
+                                                  card,
+                                                  mode=mode if takes
+                                                  else None,
+                                                  steps=steps))
             want = _ring_plain(x, p, steps, block, depth, halo)
             torch.cuda.synchronize()
             assert torch.allclose(got, want, **ATOL), (block, depth, halo)
+
+
+#: the wave mode's geometries, steps = block: kernel → [(shape, steps)]:
+#: jacobi-2d's EXTRALARGE shape (351 blocks, 3 rounds on 132 SMs), fewer
+#: blocks than SMs, a partial last round (134 blocks), n_items == block,
+#: blocks of 2 and of 4 items, items of 2 and 4 columns a thread whose
+#: cells are no multiple of them; jacobi-1d's EXTRALARGE shape; heat-3d
+WAVE = {
+    "jacobi-2d": [((2800, 2800), 8), ((40, 300), 4), ((1064, 64), 8),
+                  ((8, 300), 8), ((24, 37), 2), ((32, 1001), 4),
+                  ((16, 2001), 8)],
+    "jacobi-1d": [((4000,), 8), ((24,), 2)],
+    "heat-3d": [((16, 37, 45), 2), ((12, 20, 20), 4), ((16, 8, 8), 8)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,steps", [
+    (name, shape, steps) for name, cases in sorted(WAVE.items())
+    for shape, steps in cases])
+def test_wave_mode_is_bit_equal_to_the_cluster_and_the_addressable_steps(
+        name, shape, steps, cuda_device):
+    """`ring_stencil` takes the wave for a full ring whose block fits one
+    CTA, and its output equals, bit for bit, the cluster-barrier kernel's
+    (forced to ``"shared"``) and ``steps`` addressable steps'."""
+    p = STENCIL_PROGRAMS[name]
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(shape)
+                         .astype(np.float32)).to(cuda_device)
+    card = ring_card(cuda_device)
+    assert ring_launch(shape, steps, steps + 1, 2, card, steps).mode == "wave"
+    before = RING_LAUNCHES["wave"]
+    got = ring_stencil(x, p, steps, steps, steps + 1, 2)
+    cluster = _ring_stencil_with(
+        x, p, steps, steps, steps + 1, 2,
+        _ring_launch(shape, steps, steps + 1, 2, card, mode="shared"))
+    addressable = addressable_steps(x, p, steps)
+    torch.cuda.synchronize()
+    assert RING_LAUNCHES["wave"] - before == 1
+    assert torch.equal(got, cluster)
+    assert torch.equal(got, addressable)
+
+
+@pytest.mark.cuda
+def test_wave_job_of_250_calls_equals_2000_addressable_steps(cuda_device):
+    """The benchmark's jacobi-2d job (2800 x 2800, 2000 sweeps as 250
+    chained calls of steps = block = 8) runs all 250 launches in the wave
+    and ends bit-equal to 2000 addressable steps; heat-3d's EXTRALARGE
+    job runs none in the wave (its block fits no CTA): all 250 in the
+    grid."""
+    p = STENCIL_PROGRAMS["jacobi-2d"]
+    x = torch.rand((2800, 2800), generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device)
+    before = dict(RING_LAUNCHES)
+    launches = cuda_lib.RING_STENCIL.launches
+    y = x
+    for _ in range(250):
+        y = ring_stencil(y, p, 8, 8, 9, 2)
+    want = addressable_steps(x, p, 2000)
+    torch.cuda.synchronize()
+    assert cuda_lib.RING_STENCIL.launches - launches == 250
+    assert RING_LAUNCHES["wave"] - before.get("wave", 0) == 250
+    assert RING_LAUNCHES["shared"] == before.get("shared", 0)
+    assert torch.equal(y, want)
+    heat = STENCIL_PROGRAMS["heat-3d"]
+    xh = torch.rand((200, 200, 200), device=cuda_device)
+    before = dict(RING_LAUNCHES)
+    for _ in range(250):
+        xh = ring_stencil(xh, heat, 8, 8, 9, 2)
+    torch.cuda.synchronize()
+    assert RING_LAUNCHES["wave"] == before.get("wave", 0)
+    assert RING_LAUNCHES["grid"] - before.get("grid", 0) == 250
+    assert bool(torch.isfinite(xh).all())
+
+
+@pytest.mark.cuda
+def test_unplaceable_wave_is_refused(cuda_device):
+    """A wave of more CTAs than the card's SMs (one CTA an SM: each holds
+    a block of 8 x 2800 cells) is refused at its launch, and the next
+    launch is clean and exact."""
+    p = STENCIL_PROGRAMS["jacobi-2d"]
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2400, 2800)).astype(np.float32)).to(cuda_device)
+    card = ring_card(cuda_device)
+    big = _ring_launch(tuple(x.shape), 8, 9, 2, card, ctas=300, mode="wave",
+                       steps=8)
+    assert big.mode == "wave" and big.ctas == 300 > card.sms
+    with pytest.raises(RuntimeError):
+        _ring_stencil_with(x, p, 8, 8, 9, 2, big)
+    got = ring_stencil(x, p, 8, 8, 9, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, addressable_steps(x, p, 8))
 
 
 @pytest.mark.cuda

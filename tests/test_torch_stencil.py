@@ -31,9 +31,9 @@ from repro_torch.core import analyze  # noqa: E402
 from repro_torch.core.registry import get, kernel_names  # noqa: E402
 from repro_torch.runtime import REORDER_BUFFER  # noqa: E402
 from repro_torch.runtime.cuda_codegen import (  # noqa: E402
-    MAX_CLUSTER, STENCIL_PROGRAMS, RingCard, _addressable_plain,
-    _memory_channels, _ring_launch, addressable_step, addressable_steps,
-    ring_launch, ring_stencil)
+    COURIER, FLAG_INTS, MAX_CLUSTER, RING_LAUNCHES, STENCIL_PROGRAMS,
+    RingCard, _addressable_plain, _memory_channels, _ring_launch,
+    addressable_step, addressable_steps, ring_launch, ring_stencil)
 
 #: kernel → (shape, steps, blocks to try — 1 is the degenerate tiling)
 from test_pallas import GEOMETRIES  # noqa: E402
@@ -173,18 +173,22 @@ def test_addressable_job_on_the_cpu_chains_plain_steps(name):
 
 
 #: an H100 SXM as `ring_card` reads it: 132 SMs, 227 KB of shared memory a
-#: CTA, and the ring kernel's launch bounds
+#: CTA, and the ring kernel's launch bounds (the wave mode's by columns)
 H100 = RingCard(sms=132, smem_bytes=232448,
-                max_threads={8: 512, 4: 1024, 2: 1024, 1: 1024})
+                max_threads={8: 512, 4: 1024, 2: 1024, 1: 1024},
+                wave_threads={1: 1024, 2: 1024, 4: 768})
 
-#: (shape, block, depth, halo, ctas, mode) → (mode, CTAs, rows a CTA): the
-#: main path's EXTRALARGE shapes at steps = block = 8 (heat-3d's tiles pass
-#: a cluster's shared memory, so it takes a grid), the card tests' wide
-#: shapes, a cluster cut to 4, and forced modes at 5 CTAs (None, None:
-#: the public `ring_launch`)
+#: (shape, block, depth, halo, ctas, mode) → (mode, CTAs, rows a CTA), at
+#: steps = block: the main path's EXTRALARGE shapes (a full ring whose
+#: block fits one CTA takes the wave, blocks in flight on every SM; heat-3d's
+#: block fits no CTA and its tiles pass a cluster's shared memory, so it
+#: takes a grid), the card tests' wide shapes, a cluster cut to 4 by an
+#: undersized ring, forced modes at 5 CTAs (None, None: the public
+#: `ring_launch`), and the wave in one round, in a partial last round (134
+#: blocks on 132 SMs) and with n_items == block
 LAUNCHES = [
-    ((4000,), 8, 9, 2, None, None, ("shared", 1, 1)),
-    ((2800, 2800), 8, 9, 2, None, None, ("shared", 16, 175)),
+    ((4000,), 8, 9, 2, None, None, ("wave", 132, 1)),
+    ((2800, 2800), 8, 9, 2, None, None, ("wave", 132, 2800)),
     ((200, 200, 200), 8, 9, 2, None, None, ("grid", 100, 2)),
     ((40, 300), 1, 5, 2, None, None, ("shared", 16, 19)),
     ((16, 37, 45), 2, 3, 1, None, None, ("shared", 13, 3)),
@@ -192,6 +196,11 @@ LAUNCHES = [
     ((16, 37, 45), 2, 3, 2, None, "grid", ("grid", 37, 1)),
     ((16, 37, 45), 2, 3, 2, 5, "shared", ("shared", 5, 8)),
     ((16, 37, 45), 2, 3, 2, 5, "grid", ("grid", 5, 8)),
+    ((40, 300), 4, 5, 2, None, None, ("wave", 11, 300)),
+    ((1064, 64), 8, 9, 2, None, None, ("wave", 132, 64)),
+    ((8, 300), 8, 9, 2, None, None, ("wave", 2, 300)),
+    ((16, 37, 45), 2, 3, 2, None, None, ("wave", 9, 37)),
+    ((16, 37, 45), 2, 3, 2, 5, "wave", ("wave", 5, 37)),
 ]
 
 
@@ -200,13 +209,30 @@ def test_ring_launch_shape(shape, block, depth, halo, ctas, mode, want):
     """The ring's rows spread over one cluster of at most 16 CTAs or a
     grid of at most one CTA an SM, every row owned once; threads ×
     segments fill at most a CTA; the tiles go to shared memory in a
-    cluster where they fit, else to a global scratch."""
-    L = (ring_launch(shape, block, depth, halo, H100)
+    cluster where they fit, else to a global scratch.  In the wave mode a
+    CTA of whole warps and the courier's holds every row of a block, its
+    columns over the threads, two copies of block - 1 rows in shared
+    memory, with one channel of ``depth`` slots and flags a CTA."""
+    L = (ring_launch(shape, block, depth, halo, H100, block)
          if ctas is None and mode is None else
-         _ring_launch(shape, block, depth, halo, H100, ctas, mode))
+         _ring_launch(shape, block, depth, halo, H100, ctas, mode,
+                      steps=block))
     d1 = (shape[1:] + (1,))[0]
     d2 = (shape[2:] + (1,))[0]
     assert (L.mode, L.ctas, L.rows) == want
+    if L.mode == "wave":
+        blocks = shape[0] // block + 1
+        assert L.ctas == min(ctas or H100.sms, blocks)
+        assert L.rows == d1 and L.segments == 1
+        assert L.threads % 32 == 0 and L.cols in (1, 2, 4)
+        assert (L.threads - 32) * L.cols < d1 * d2 <= L.threads * L.cols
+        assert L.threads + COURIER <= H100.wave_threads[L.cols]
+        assert L.stride == L.threads * L.cols
+        assert L.tile_floats == 2 * (block - 1) * (L.stride + 8) + 4
+        assert L.smem_bytes == 4 * L.tile_floats <= H100.smem_bytes
+        assert L.scratch_floats == L.ctas * depth * 2 * d1 * d2
+        assert L.flag_ints == L.ctas * depth * FLAG_INTS
+        return
     assert L.ctas <= (ctas or (H100.sms if L.mode == "grid"
                                else MAX_CLUSTER))
     assert (L.ctas - 1) * L.rows < d1 <= L.ctas * L.rows
@@ -228,6 +254,53 @@ def test_ring_launch_refuses_what_it_cannot_shape():
         _ring_launch((16, 40), 4, 5, 2, H100, mode="vmem")
     with pytest.raises(ValueError, match="shared memory"):
         _ring_launch((200, 200, 200), 8, 9, 2, H100, mode="shared")
+
+
+def test_ring_launch_takes_the_wave_for_a_full_ring_that_fits():
+    """The main path's jacobi-2d ring (full, halo 2, a block of 8 x 2800
+    cells fits one CTA) takes the wave; heat-3d's block of 8 planes of
+    200 x 200 fits none and keeps the grid; an undersized ring, a narrowed
+    halo and a call whose steps are not given keep the cluster."""
+    xl = (2800, 2800)
+    assert ring_launch(xl, 8, 9, 2, H100, 8).mode == "wave"
+    assert ring_launch(xl, 8, 9, 2, H100, 16).mode == "shared"  # undersized
+    assert ring_launch(xl, 8, 4, 2, H100, 8).mode == "shared"
+    assert ring_launch(xl, 8, 9, 1, H100, 8).mode == "shared"
+    assert ring_launch(xl, 8, 9, 2, H100).mode == "shared"
+    assert ring_launch((200, 200, 200), 8, 9, 2, H100, 8).mode == "grid"
+    assert ring_launch((200, 200, 200), 8, 9, 2, H100, 8) == \
+        ring_launch((200, 200, 200), 8, 9, 2, H100)
+    for depth, halo in ((4, 2), (9, 1)):
+        assert ring_launch(xl, 8, depth, halo, H100, 8) == \
+            ring_launch(xl, 8, depth, halo, H100)
+
+
+@pytest.mark.parametrize("shape,block,depth,halo,steps,ctas,match", [
+    ((2800, 2800), 8, 4, 2, 8, None, "undersized"),
+    ((2800, 2800), 8, 9, 1, 8, None, "halo"),
+    ((2800, 2800), 8, 9, 2, None, None, "steps"),
+    ((200, 200, 200), 8, 9, 2, 8, None, "threads"),
+    ((40, 300), 1, 5, 2, 4, None, "block"),
+    ((40, 300), 16, 17, 2, 16, None, "block"),
+    ((40, 300), 4, 5, 2, 4, 1, "itself"),
+    ((1200, 3000), 8, 9, 2, 8, None, "threads"),
+])
+def test_forcing_the_wave_on_what_it_cannot_run_raises(shape, block, depth,
+                                                       halo, steps, ctas,
+                                                       match):
+    with pytest.raises(ValueError, match=match):
+        _ring_launch(shape, block, depth, halo, H100, ctas, "wave",
+                     steps=steps)
+
+
+def test_ring_launches_by_mode_count_only_kernel_launches():
+    """The count by mode is the card's: the plain version on a CPU tensor
+    launches nothing."""
+    before = dict(RING_LAUNCHES)
+    p = STENCIL_PROGRAMS["jacobi-2d"]
+    x = torch.from_numpy(inputs((16, 8), 1))
+    ring_stencil(x, p, 4, 4, 5, 2)
+    assert dict(RING_LAUNCHES) == before
 
 
 def test_compile_requires_plan_stage_and_known_program():
