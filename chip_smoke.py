@@ -642,6 +642,10 @@ FAMILY_PREFILL_S = 4096
 MOE_LAYER0 = dict(B=1, S=512)
 MOE_OVERFLOW = dict(B=4, S=256, scale=8.0)
 HYBRID_CUT = dict(num_layers=8, num_experts=8)
+#: phase 16: jamba2-mini (src/repro_torch/configs/jamba2_mini.py) at its
+#: published widths, one stage of 8 of its 32 layers: the prefill of 1 x
+#: FAMILY_PREFILL_S and a decode step timed
+STAGE_ARCH, STAGE_LAYERS = "jamba2-mini", 8
 ENCDEC_FRAMES, ENCDEC_TOKENS = 1500, 448
 #: phase 17: the dry run (`repro_torch.launch.dryrun`).  Its grid here, on
 #: the card's host, over these archs x every cell x both production meshes
@@ -2384,9 +2388,12 @@ def family_phase(seed: int, smi_line: str, dev=None) -> dict:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        # the hybrid stack's spans (`record_function`) have a copy on the
+        # device's timeline: no kernel
         kernels = [e for e in prof.key_averages()
                    if getattr(e, "device_type", None)
-                   == torch.autograd.DeviceType.CUDA]
+                   == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
         device_us = sum(e.self_device_time_total for e in kernels)
         if not device_us:
             say(f"phase 16 {label}: device time not measured (the profiler "
@@ -2583,6 +2590,50 @@ def family_phase(seed: int, smi_line: str, dev=None) -> dict:
            f"{HYBRID_ARCH} (cut)")
     peak(f"{HYBRID_ARCH} (cut)")
     del params, model, sp
+    torch.cuda.empty_cache()
+
+    # ---- jamba2-mini at its published widths, one 8-layer stage
+    cfg = dataclasses.replace(configs.get(STAGE_ARCH).model,
+                              num_layers=STAGE_LAYERS)
+    model, rules, params = built(STAGE_ARCH, cfg)
+    toks = tokens(1, S, cfg.vocab_size)
+    cache = model.init_cache(1, S, dev)
+    zero()
+    with torch.no_grad():
+        stage_ms = cuda_ms(lambda: model.prefill_fn(
+            params, {"tokens": toks}, rules, cache), MODEL_REPS)
+    per_prefill = counted()["flash_attention"] / (MODEL_REPS + 1)
+    stage_device = profiled(lambda: model.prefill_fn(
+        params, {"tokens": toks}, rules, cache), f"{STAGE_ARCH} (stage) "
+        f"prefill")
+    del cache
+    n_attn = len(cfg.attn_layer_indices())
+    check(per_prefill == n_attn, f"phase 16 {STAGE_ARCH}: {per_prefill} "
+          f"launches of kernel 5 a prefill")
+    # the products: 2 x the active weights a token (the embedding table is
+    # a lookup), and the causal scores
+    flops = float(2 * S * (cfg.active_param_count()
+                           - cfg.padded_vocab() * cfg.d_model)
+                  + 2 * n_attn * cfg.num_heads * S * S * cfg.head_dim_)
+    say(f"phase 16 {STAGE_ARCH} (stage of {cfg.num_layers} layers) prefill 1"
+        f" x {S} tokens, bf16: {stage_ms:.3f} ms (median of {MODEL_REPS}); "
+        f"kernel 5 launched {per_prefill:.0f} times a prefill; bound: the "
+        f"products' {flops:.4g} operations at bf16's rate, "
+        f"{flops / PEAK_FLOPS_BF16 * 1e3:.3f} ms; device busy "
+        f"{stage_device / stage_ms:.3f} of it; {smi_line}")
+    decode_step(model, params, rules, f"{STAGE_ARCH} (stage)")
+    # the step as `serve` runs it on the card: one CUDA graph replay
+    cache = model.init_cache(1, SERVE["max_seq"], dev)
+    with torch.no_grad():
+        step = model.decode_graph(params, cache, rules, 1)
+        graph_ms = cuda_ms(lambda: step(np.zeros((1, 1), np.int32),
+                                        SERVE["max_seq"] // 2), DECODE_REPS)
+    say(f"phase 16 {STAGE_ARCH} (stage) decode step as `serve` runs it, a "
+        f"CUDA graph, B = 1, cache {SERVE['max_seq']}: {graph_ms:.3f} ms "
+        f"(median of {DECODE_REPS}); {smi_line}")
+    del cache, step
+    peak(f"{STAGE_ARCH} (stage)")
+    del params, model
     torch.cuda.empty_cache()
 
     # ---- whisper-medium at full width and depth

@@ -27,7 +27,9 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_every: int = 1             # MoE MLP on layers with index % moe_every == moe_offset
     moe_offset: int = 1
-    capacity_factor: float = 1.25
+    # slots an expert and group, as a multiple of its even share; None routes
+    # every token (dropless: each expert's product over its routed rows)
+    capacity_factor: Optional[float] = 1.25
     # hybrid (jamba): one attention layer per `attn_period` layers, rest Mamba
     attn_period: int = 0
     # SSM
@@ -47,6 +49,11 @@ class ModelConfig:
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+
+    # The options only a `PublishedModelConfig` sets.  Class attributes here,
+    # not fields, so the assigned configs' fields stay the reference's.
+    ssm_dt_rank = 0            # > 0: the published (jamba) Mamba-1 mixer
+    moe_norm_topk = True       # renormalize the top-k gates to sum 1
 
     @property
     def head_dim_(self) -> int:
@@ -117,12 +124,32 @@ class ModelConfig:
         D = self.d_model
         di = self.ssm_expand * D
         ds = self.ssm_state_dim
+        R = self.ssm_dt_rank
+        if R:           # in/x/dt/out_proj, conv, dt bias, A_log, D, norms
+            return (D * 2 * di + self.ssm_conv_width * di + di
+                    + di * (R + 2 * ds) + R * di + di + di * ds + di
+                    + di * D + R + 2 * ds)
         return (D * 2 * di + self.ssm_conv_width * di + di * ds * 2
                 + di * 2 + di + di * D)
 
     def _rwkv_layer_params(self) -> int:
         D, F = self.d_model, self.d_ff
         return 4 * D * D + D * D // 2 + 2 * D * F + 8 * D
+
+
+@dataclass(frozen=True)
+class PublishedModelConfig(ModelConfig):
+    """A model the port serves at its published widths beyond the
+    reference's assigned set, with the options that model's layers need.
+
+    ssm_dt_rank > 0 selects the published Mamba-1 mixer (`models.ssm`):
+    ``x_proj`` (d_inner → dt_rank + 2·d_state) and a low-rank ``dt_proj``
+    (dt_rank → d_inner, with its bias), in place of the reference's
+    full-rank ``bc_proj`` and ``dt_proj``, with jamba's RMSNorms on dt, B
+    and C.  moe_norm_topk False keeps the top-k router
+    probabilities as the gates; capacity_factor None routes every token."""
+    ssm_dt_rank: int = 0
+    moe_norm_topk: bool = True
 
 
 @dataclass(frozen=True)

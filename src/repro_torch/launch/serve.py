@@ -16,11 +16,13 @@ the prompt broadcast to every slot, from the whole cache, and keeps the
 admitted slot's rows.  In the dense, ssm and encoder-decoder families each
 row is computed alone, so a prefill at B = 1 on a view of that slot's rows
 gives the same rows and logits, and the port prefills so.  Where the model
-has experts (moe, hybrid) the rows are coupled: an expert's capacity counts
-the tokens of every row, so which of the slot's tokens an expert drops
-depends on the others.  There the port prefills as the reference does: the
-prompt broadcast to all B slots on a copy of the cache, the slot's rows
-copied back.  A slot's rows lie along each cache leaf's batch axis, where
+routes to experts by capacity (moe, hybrid) the rows are coupled: an
+expert's capacity counts the tokens of every row, so which of the slot's
+tokens an expert drops depends on the others.  There the port prefills as
+the reference does: the prompt broadcast to all B slots on a copy of the
+cache, the slot's rows copied back.  A dropless MoE (``capacity_factor``
+None) drops nothing, so its rows are independent and it prefills its own
+slot at B = 1.  A slot's rows lie along each cache leaf's batch axis, where
 its plan names ``"batch"`` (dim 2 of the hybrid's Mamba leaves; the
 reference's merge assumes dim 1 and fails there).  The encoder-decoder gets
 the reference launcher's zero ``frames``, (B, len(prompt), d_model) at
@@ -40,6 +42,13 @@ the prompt broadcast to all slots on a copy of the cache, merged back by a
 (the production mesh, 1×1 with ``--reduced``) when it is started as ranks
 of a job (``WORLD_SIZE`` in the environment, as ``torchrun`` sets it),
 joining it as `repro_torch.launch.mesh.init_from_env` does.
+
+A prefill call runs inside a ``serve.prefill`` profiler span and a decode
+step inside ``serve.decode_step``, each up to its tokens on the host.  On one
+CUDA device the hybrid family's decode step is captured once a call as a
+CUDA graph over the call's cache and replayed each step
+(`Model.decode_graph`): the step's hundreds of small kernels cost one
+launch on the host.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import configs
 from ..configs.base import reduced as reduce_cfg
@@ -104,7 +114,8 @@ def serve(model, params, requests: List[Request], slots: int, max_seq: int,
     box = {"cache": cache, "prefills": 0}
     # the prompt goes to every slot where the rows are coupled: by the
     # experts' capacity, or on a mesh that splits a leaf's batch axis
-    broadcast = cfg.num_experts > 0 or (rules.on_mesh and any(
+    capacity_routed = cfg.num_experts > 0 and cfg.capacity_factor is not None
+    broadcast = capacity_routed or (rules.on_mesh and any(
         p.is_shard(axes[k]) for k, v in cache.items() for p in v.placements))
 
     def with_frames(batch, n: int):
@@ -140,6 +151,7 @@ def serve(model, params, requests: List[Request], slots: int, max_seq: int,
         with rules.context():
             leaf.copy_(torch.where(sel, new, leaf))
 
+    @record_function("serve.prefill")
     def prefill_fn(slot: int, prompt) -> int:
         toks = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
         cache = box["cache"]
@@ -159,11 +171,21 @@ def serve(model, params, requests: List[Request], slots: int, max_seq: int,
         box["prefills"] += 1
         return int(torch.argmax(_whole(logits)[slot if broadcast else 0, -1]))
 
+    graphed = model.graph_decode(dev, rules)
+
+    @record_function("serve.decode_step")
     def step_fn(tokens, pos):
-        batch = with_frames({"tokens": torch.as_tensor(tokens, device=dev),
-                             "pos": int(pos.max())}, 1)
-        logits, box["cache"] = model.decode_fn(params, batch, box["cache"],
-                                               rules)
+        if graphed:
+            if "graph" not in box:      # the cache's tensors stay put
+                box["graph"] = model.decode_graph(params, box["cache"],
+                                                  rules, B)
+            logits = box["graph"](tokens, int(pos.max()))
+        else:
+            batch = with_frames({"tokens": torch.as_tensor(tokens,
+                                                           device=dev),
+                                 "pos": int(pos.max())}, 1)
+            logits, box["cache"] = model.decode_fn(params, batch,
+                                                   box["cache"], rules)
         return torch.argmax(_whole(logits)[:, 0], dim=-1).cpu().numpy()
 
     batcher = ContinuousBatcher(
@@ -182,7 +204,7 @@ def serve(model, params, requests: List[Request], slots: int, max_seq: int,
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True, choices=configs.arch_names())
+    ap.add_argument("--arch", required=True, choices=configs.all_arch_names())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)

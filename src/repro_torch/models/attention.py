@@ -272,8 +272,8 @@ def _quantize_kv(kv, int8: bool):
     if not int8:
         return kv, None
     a = kv.float()
-    scale = a.abs().amax(-1, keepdim=True) / torch.tensor(
-        127.0, device=a.device)
+    scale = a.abs().amax(-1, keepdim=True) / torch.full(
+        (), 127.0, device=a.device)
     q = torch.round(a / torch.clamp(scale, min=1e-12)).to(torch.int8)
     return q, scale
 

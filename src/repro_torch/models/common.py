@@ -35,7 +35,7 @@ class PSpec:
     """Plan for one parameter tensor."""
     shape: Tuple[int, ...]
     names: Tuple[Optional[str], ...]        # logical axes, len == len(shape)
-    init: str = "normal"                    # normal | zeros | ones
+    init: str = "normal"                    # normal | zeros | ones | s4d | dt
     scale: float = 1.0                      # multiplier on fan-in init
     dtype: Any = torch.bfloat16
 
@@ -111,6 +111,23 @@ def leaf_seed(seed: int, path: str, device_type: str) -> int:
     return int(seed) * 2 ** 31 + zlib.crc32(path.encode()) % (2 ** 31)
 
 
+def _s4d_real(shape, device) -> torch.Tensor:
+    """Mamba's published ``A_log``: log(1 … d_state) along the last axis
+    (S4D-real, A = −(n + 1))."""
+    n = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device)
+    return torch.log(n).expand(shape).contiguous()
+
+
+def _dt_bias(gen: torch.Generator, shape, device, dt_min: float = 1e-3,
+             dt_max: float = 0.1, floor: float = 1e-4) -> torch.Tensor:
+    """Mamba's published dt bias: dt log-uniform on [dt_min, dt_max],
+    floored, and the bias its inverse softplus, so softplus(bias) = dt."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    lo, hi = float(np.log(dt_min)), float(np.log(dt_max))
+    dt = torch.exp(u * (hi - lo) + lo).clamp(min=floor)
+    return dt + torch.log(-torch.expm1(-dt))
+
+
 def init_params(seed: int, plan, device=None):
     """Deterministic init on ``device`` (the card where None): every leaf
     drawn by its own `torch.Generator` on the device, seeded by `leaf_seed`
@@ -120,7 +137,8 @@ def init_params(seed: int, plan, device=None):
     scale / sqrt(fan_in).  The card's generator draws other numbers than the
     CPU's from the same seed, and neither draws the reference's: parity
     between the packages runs on parameters carried over with
-    `params_from_numpy`."""
+    `params_from_numpy`.  The published Mamba mixer's ``A_log`` (``"s4d"``)
+    and dt bias (``"dt"``) take Mamba's published initialization."""
     dev = resolve_device(device)
 
     def one(path: str, p: PSpec) -> torch.Tensor:
@@ -128,8 +146,12 @@ def init_params(seed: int, plan, device=None):
             return torch.zeros(p.shape, dtype=p.dtype, device=dev)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=p.dtype, device=dev)
+        if p.init == "s4d":
+            return _s4d_real(p.shape, dev).to(p.dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(leaf_seed(seed, path, dev.type))
+        if p.init == "dt":
+            return _dt_bias(gen, p.shape, dev).to(p.dtype)
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         leaf = torch.empty(p.shape, dtype=p.dtype, device=dev)
         _normal(gen, p.shape, p.scale / float(np.sqrt(max(fan_in, 1))), leaf)

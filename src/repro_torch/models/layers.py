@@ -26,8 +26,10 @@ from .sharding import Rules, global_offset, is_dtensor
 
 def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
     """``x * scale`` with the scale rounded to x's dtype first, as JAX
-    multiplies an array by a weakly typed Python float."""
-    return x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+    multiplies an array by a weakly typed Python float.  The scale is
+    filled on x's device (no copy from the host, so a CUDA graph may
+    capture it)."""
+    return x * torch.full((), scale, dtype=x.dtype, device=x.device)
 
 
 # ------------------------------------------------------------------- norms

@@ -6,7 +6,10 @@ The port of `repro.models.model`:
                   attention/MLP block, RMS norm or layernorm, tied
                   embeddings; an MoE MLP where the config has experts)
     hybrid      — jamba: super-blocks of ``attn_period`` sublayers (one
-                  attention, the rest Mamba), MoE every ``moe_every`` layers
+                  attention, the rest Mamba), MoE every ``moe_every`` layers;
+                  each sublayer's mixer and MLP run inside a profiler span
+                  (``hybrid.attn``, ``hybrid.mamba``, ``hybrid.moe``,
+                  ``hybrid.mlp``)
     ssm         — RWKV-6 (attention-free)
     encdec      — whisper: encoder over ``batch["frames"]`` (non-causal self
                   attention) and decoder with cross-attention
@@ -44,10 +47,11 @@ once a rank.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, ParallelConfig
@@ -60,7 +64,7 @@ from .common import (PSpec, abstract_params, init_params, partition_specs,
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_plan,
                      embed_tokens, logits_from, mlp_plan, norm_plan,
                      sinusoidal_positions)
-from .moe import apply_moe, moe_plan
+from .moe import DROPLESS, apply_moe, moe_plan
 from .sharding import Rules, is_dtensor, set_index
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -115,6 +119,9 @@ class Model:
     cfg: ModelConfig
     par: ParallelConfig
     plan: Dict
+    #: the decode graphs' side stream, memory pool and last graph
+    #: (`decode_graph`)
+    graphs: Dict = field(default_factory=dict, repr=False, compare=False)
 
     # ------------------------------------------------------------- params
     def init(self, seed: int, device=None):
@@ -242,6 +249,79 @@ class Model:
         logits, cache, _ = self.forward(params, batch, rules, "decode", cache)
         return logits, cache
 
+    def decode_graph(self, params, cache, rules: Rules, batch: int):
+        """The decode step over ``cache`` (written in place) captured once
+        as a CUDA graph.  Returns ``step(tokens, pos) -> logits``: tokens
+        (batch, 1) integers, pos an int; each call copies them into the
+        graph's input buffers and replays it, and the logits are the graph's
+        output buffer.  What the step records on the host, the dropless
+        MoE's counts and routes (`moe.DROPLESS`), is recorded again after
+        each replay.  The model's graphs share one side stream and one
+        memory pool, and the last graph is kept until the next capture, so
+        that each capture reuses the memory of the one before it (a new
+        pool a capture grew the card's memory until the allocator had to
+        free and sync); the first capture on the model runs one warm-up
+        step on a copy of the cache, so that lazy initialization stays out
+        of the graph.  The step must not sync with the host
+        (`Model.graph_decode`)."""
+        dev = next(iter(cache.values())).device
+        static = {"tokens": torch.zeros((batch, 1), dtype=torch.int32,
+                                        device=dev),
+                  "pos": torch.zeros((), dtype=torch.int64, device=dev)}
+        saved = (DROPLESS.routed, DROPLESS.dropped, DROPLESS.routes)
+        g = self.graphs
+        graph = torch.cuda.CUDAGraph()
+        try:
+            if "pool" not in g:
+                g["stream"] = torch.cuda.Stream(dev)
+                g["pool"] = torch.cuda.graph_pool_handle()
+                DROPLESS.routes = None
+                g["stream"].wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(g["stream"]):
+                    self.decode_fn(params, static,
+                                   {k: v.clone() for k, v in cache.items()},
+                                   rules)
+                torch.cuda.current_stream(dev).wait_stream(g["stream"])
+                DROPLESS.routed, DROPLESS.dropped = saved[:2]
+            DROPLESS.routes = []
+            # capture_begin/end, not `torch.cuda.graph`, which empties the
+            # allocator's cache first: the next prefill would allocate its
+            # gigabytes anew
+            g["stream"].wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(g["stream"]):
+                graph.capture_begin(pool=g["pool"])
+                try:
+                    logits, _ = self.decode_fn(params, static, cache, rules)
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(g["stream"])
+            routes = DROPLESS.routes
+            routed = DROPLESS.routed - saved[0]
+            dropped = DROPLESS.dropped - saved[1]
+        finally:
+            DROPLESS.routed, DROPLESS.dropped, DROPLESS.routes = saved
+        g["last"] = graph
+
+        def step(tokens, pos: int):
+            static["tokens"].copy_(torch.as_tensor(tokens))
+            static["pos"].fill_(pos)
+            graph.replay()
+            DROPLESS.routed += routed
+            DROPLESS.dropped += dropped
+            if DROPLESS.routes is not None:
+                DROPLESS.routes.extend(r.clone() for r in routes)
+            return logits
+
+        return step
+
+    def graph_decode(self, device, rules: Rules) -> bool:
+        """Whether `serve` runs the decode step as a CUDA graph: on one CUDA
+        device (not a DeviceMesh), for the hybrid family, whose decode step
+        makes no host sync and no host-to-device copy (the dropless MoE
+        gathers its few rows' experts on the device)."""
+        return (torch.device(device).type == "cuda" and not rules.on_mesh
+                and self.cfg.family == "hybrid")
+
     # ------------------------------------------------------- layer loop
     def _scan_layers(self, body, x, cache, stacked_params, mode: str,
                      rules: Rules, two_level: bool = True):
@@ -348,19 +428,22 @@ class Model:
                 use_moe = j % cfg.moe_every == cfg.moe_offset % cfg.moe_every
                 h = apply_norm(sub("pre_norms", j), x, cfg)
                 if j == attn_j:
-                    a, cache = attention(sp["attn"], h, cfg, rules, mode,
-                                         positions, cache, kv_len,
-                                         layer_idx=i)
+                    with record_function("hybrid.attn"):
+                        a, cache = attention(sp["attn"], h, cfg, rules, mode,
+                                             positions, cache, kv_len,
+                                             layer_idx=i)
                 elif mode == "train":
-                    a = mamba_train(sub("mamba", mi), h)
+                    with record_function("hybrid.mamba"):
+                        a = mamba_train(sub("mamba", mi), h)
                     mi += 1
                 else:
                     mc = None
                     if cache is not None:
                         mc = {"conv": cache["mamba_conv"][i, mi],
                               "ssm": cache["mamba_ssm"][i, mi]}
-                    a, mc_new = ssm.apply_mamba(sub("mamba", mi), h, cfg,
-                                                rules, mode, mc)
+                    with record_function("hybrid.mamba"):
+                        a, mc_new = ssm.apply_mamba(sub("mamba", mi), h, cfg,
+                                                    rules, mode, mc)
                     if cache is not None and mc_new is not None:
                         cache = dict(cache)
                         cache["mamba_conv"] = _write2(
@@ -371,11 +454,13 @@ class Model:
                 x = x + a
                 h2 = apply_norm(sub("mlp_norms", j), x, cfg)
                 if use_moe:
-                    m, a2 = apply_moe(sub("moe", di), h2, cfg, rules)
+                    with record_function("hybrid.moe"):
+                        m, a2 = apply_moe(sub("moe", di), h2, cfg, rules)
                     aux = aux + a2
                     di += 1
                 else:
-                    m = apply_mlp(sub("mlp", ndense), h2, cfg, rules)
+                    with record_function("hybrid.mlp"):
+                        m = apply_mlp(sub("mlp", ndense), h2, cfg, rules)
                     ndense += 1
                 x = rules.constrain(x + m, "batch", "seq", "embed_act")
             return x, aux, cache

@@ -43,10 +43,26 @@ Top-k takes the K largest router probabilities with ties to the lower
 expert index, as ``lax.top_k`` does (a stable descending sort).  The
 experts' products are `torch.matmul` over the expert dimension (the
 reference computes them in ``jnp.einsum``, outside any Pallas kernel).
+The gates are the K probabilities renormalized to sum 1, or, where
+``cfg.moe_norm_topk`` is False (jamba's router), the probabilities as they
+are.
+
+Where ``cfg.capacity_factor`` is None the layer is dropless
+(`_apply_moe_dropless`, one device only): the B·S·K assignments are sorted
+by expert (stable, so token-major within an expert), each expert's product
+runs over its own contiguous rows, and the rows go back to assignment order
+by a scatter of a permutation before the same fixed-order float32 combine
+over K.  No token is dropped and no row is padded.  `DROPLESS` counts the
+assignments it routed and dropped and its largest expert load (plain
+integers a run may read and reset; the counts a call needs are on the host
+already, to size each expert's product); where its ``routes`` is a list,
+each call appends its expert choices, (B·S, K) on the device, in call
+order, so that a check can hold a reference to the same routing.
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, Tuple
 
 import torch
@@ -55,6 +71,10 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from .common import PSpec
 from .sharding import Rules
+
+#: the dropless path's assignments routed and dropped, summed, the most rows
+#: one expert took in one call, and (where a list) each call's choices
+DROPLESS = SimpleNamespace(routed=0, dropped=0, max_load=0, routes=None)
 
 
 def moe_plan(cfg: ModelConfig) -> Dict:
@@ -143,24 +163,33 @@ def apply_moe(p, x, cfg: ModelConfig, rules: Rules
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (y, aux_loss)."""
     if rules.on_mesh:
+        if cfg.capacity_factor is None:
+            raise NotImplementedError("dropless routing runs on one device "
+                                      "only")
         return _apply_moe_on_mesh(p, x, cfg, rules)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
-    G = _num_groups(rules, B)
+    G = 1 if cfg.capacity_factor is None else _num_groups(rules, B)
     Tg = B * S // G
-    cap = capacity(Tg, cfg)
 
     xf = rules.constrain(x.reshape(G, Tg, D), "batch", None, "embed_act")
     logits = (xf @ p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, eidx = top[..., :K], idx[..., :K]                      # (G,Tg,K)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    if cfg.moe_norm_topk:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     # Switch aux loss: mean fraction routed vs mean router prob per expert
     frac = F.one_hot(eidx[..., 0], E).float().mean((0, 1))
     aux = E * (frac * probs.mean((0, 1))).sum()
 
+    if cfg.capacity_factor is None:
+        y = _apply_moe_dropless(p, xf[0], gate[0], eidx[0], E)
+        y = rules.constrain(y.reshape(B, S, D), "batch", "seq", "embed_act")
+        return y.to(x.dtype), aux.float()
+
+    cap = capacity(Tg, cfg)
     slot, kept, disp, used = route(eidx, E, cap)
     xe = _Dispatch.apply(xf, disp, used, slot, kept)            # (G,E·cap,D)
     xe = xe.reshape(G, E, cap, D).transpose(0, 1).reshape(E, G * cap, D)
@@ -177,6 +206,41 @@ def apply_moe(p, x, cfg: ModelConfig, rules: Rules
          .reshape(G, Tg, K, D) * w[..., None]).sum(2).to(x.dtype)
     y = rules.constrain(y.reshape(B, S, D), "batch", "seq", "embed_act")
     return y.to(x.dtype), aux.float()
+
+
+def _apply_moe_dropless(p, xf, gate, eidx, E: int) -> torch.Tensor:
+    """Every assignment served: xf (T, D), gate and eidx (T, K) → y (T, D)
+    in float32 (see the module docstring).  Where there are no more
+    assignments than experts (a decode step), each assignment's expert
+    weights are gathered instead, with no host sync, so that a CUDA graph
+    may capture the step (its loads then go uncounted in ``max_load``)."""
+    T, K = eidx.shape
+    flat = eidx.reshape(T * K)
+    if T * K <= E:
+        rows = xf[:, None].expand(T, K, xf.shape[-1]).reshape(T * K, 1, -1)
+        h = F.silu(rows @ p["wi_gate"].index_select(0, flat)) \
+            * (rows @ p["wi_up"].index_select(0, flat))
+        out = (h @ p["wo"].index_select(0, flat))[:, 0]
+        start = T * K
+    else:
+        order = torch.sort(flat, stable=True).indices  # assignments by expert
+        loads = torch.bincount(flat, minlength=E).tolist()
+        rows = xf[order // K]                               # (T·K, D), sorted
+        parts, start = [], 0
+        for e, n in enumerate(loads):
+            if n:
+                r = rows[start:start + n]
+                h = F.silu(r @ p["wi_gate"][e]) * (r @ p["wi_up"][e])
+                parts.append(h @ p["wo"][e])
+                start += n
+        out = torch.empty_like(rows)
+        out[order] = torch.cat(parts)          # back to assignment order
+        DROPLESS.max_load = max(DROPLESS.max_load, max(loads))
+    DROPLESS.routed += T * K
+    DROPLESS.dropped += T * K - start
+    if DROPLESS.routes is not None:
+        DROPLESS.routes.append(eidx)
+    return (out.float().reshape(T, K, -1) * gate[..., None]).sum(1)
 
 
 def _apply_moe_on_mesh(p, x, cfg: ModelConfig, rules: Rules
@@ -201,7 +265,8 @@ def _apply_moe_on_mesh(p, x, cfg: ModelConfig, rules: Rules
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, eidx = top[..., :K], idx[..., :K]                     # (B,S,K)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    if cfg.moe_norm_topk:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     rows = by_axis(Shard(0), Replicate(), Replicate())         # tokens
     wpl = by_axis(Replicate(), Shard(0), Replicate())          # experts

@@ -13,17 +13,34 @@ of S, then splits).  Decode is a single recurrent update.
 The reference has no Pallas kernel here, so neither does the port: the
 block scan is plain PyTorch on every device, and the projections are
 `torch.matmul`.
+
+Where ``cfg.ssm_dt_rank`` > 0 the mixer is the published Mamba-1 one
+(jamba's, arXiv:2403.19887): ``x_proj`` (d_inner → dt_rank + 2·d_state)
+gives dt, B and C, each RMS-normed (jamba's inner norms), and
+``dt = softplus(dt_proj(dt) + dt_bias)`` with ``dt_proj`` (dt_rank →
+d_inner) taken in float32; ``A_log`` and the dt bias take Mamba's
+published initialization.  The reference's form (rank 0) projects B and C
+with ``bc_proj`` and dt with a full-rank ``dt_proj``.  The scan is the same
+for both.  `SCAN.blocks` counts the blocks the prefill and train scans ran
+(a plain integer a run may read and reset), and the scan runs inside a
+``hybrid.mamba.scan`` profiler span.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
-from .common import PSpec
+from .common import PSpec, norm_scale
+from .layers import rms_head
 from .sharding import Rules
+
+#: blocks scanned by train and prefill calls, summed
+SCAN = SimpleNamespace(blocks=0)
 
 
 def mamba_plan(cfg: ModelConfig) -> Dict:
@@ -31,17 +48,27 @@ def mamba_plan(cfg: ModelConfig) -> Dict:
     di = cfg.ssm_expand * D
     ds = cfg.ssm_state_dim
     w = cfg.ssm_conv_width
-    return {
+    R = cfg.ssm_dt_rank
+    plan = {
         "in_proj": PSpec((D, 2 * di), ("wfsdp", "wtp"), "normal", 1.0),
         "conv_w": PSpec((w, di), (None, "wtp"), "normal", 1.0),
         "conv_b": PSpec((di,), ("wtp",), "zeros"),
-        "bc_proj": PSpec((di, 2 * ds), ("wtp", None), "normal", 1.0),
-        "dt_proj": PSpec((di, di), ("wtp", "wtp"), "normal", 1.0),
-        "dt_bias": PSpec((di,), ("wtp",), "zeros"),
-        "A_log": PSpec((di, ds), ("wtp", None), "zeros"),
-        "Dskip": PSpec((di,), ("wtp",), "ones"),
-        "out_proj": PSpec((di, D), ("wtp", "wfsdp"), "normal", 1.0),
     }
+    if R:
+        plan["x_proj"] = PSpec((di, R + 2 * ds), ("wtp", None), "normal", 1.0)
+        plan.update(dt_norm=norm_scale(R), b_norm=norm_scale(ds),
+                    c_norm=norm_scale(ds))
+        plan["dt_proj"] = PSpec((R, di), (None, "wtp"), "normal", 1.0)
+        plan["dt_bias"] = PSpec((di,), ("wtp",), "dt")
+        plan["A_log"] = PSpec((di, ds), ("wtp", None), "s4d")
+    else:
+        plan["bc_proj"] = PSpec((di, 2 * ds), ("wtp", None), "normal", 1.0)
+        plan["dt_proj"] = PSpec((di, di), ("wtp", "wtp"), "normal", 1.0)
+        plan["dt_bias"] = PSpec((di,), ("wtp",), "zeros")
+        plan["A_log"] = PSpec((di, ds), ("wtp", None), "zeros")
+    plan["Dskip"] = PSpec((di,), ("wtp",), "ones")
+    plan["out_proj"] = PSpec((di, D), ("wtp", "wfsdp"), "normal", 1.0)
+    return plan
 
 
 def _ssm_block_scan(decay, drive, h0):
@@ -85,6 +112,21 @@ def _matmul(a, b):
     return a @ b
 
 
+def _dt_b_c(p, xc, cfg: ModelConfig):
+    """dt (B,S,di), B and C (B,S,ds) in float32 from the conv output."""
+    ds, R = cfg.ssm_state_dim, cfg.ssm_dt_rank
+    if not R:
+        Bm, Cm = _matmul(xc, p["bc_proj"]).float().chunk(2, dim=-1)
+        dt = F.softplus(_matmul(xc, p["dt_proj"]).float()
+                        + p["dt_bias"].float())
+        return dt, Bm, Cm
+    dtr, Bm, Cm = _matmul(xc, p["x_proj"]).float().split([R, ds, ds], -1)
+    dtr, Bm, Cm = (rms_head(dtr, p["dt_norm"]), rms_head(Bm, p["b_norm"]),
+                   rms_head(Cm, p["c_norm"]))
+    dt = F.softplus(dtr @ p["dt_proj"].float() + p["dt_bias"].float())
+    return dt, Bm, Cm
+
+
 def apply_mamba(p, x, cfg: ModelConfig, rules: Rules, mode: str,
                 cache: Optional[Dict] = None, block: int = 512
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -115,30 +157,31 @@ def apply_mamba(p, x, cfg: ModelConfig, rules: Rules, mode: str,
         xc = F.silu(xc)
         new_conv = xpad[:, -(w - 1):]
 
-    Bm, Cm = _matmul(xc, p["bc_proj"]).float().chunk(2, dim=-1)   # (B,S,ds)
-    dt = F.softplus(_matmul(xc, p["dt_proj"]).float() + p["dt_bias"].float())
+    dt, Bm, Cm = _dt_b_c(p, xc, cfg)                # (B,S,di), (B,S,ds) ×2
     A = -torch.exp(p["A_log"].float())                             # (di, ds)
     xdt = dt * xc.float()                                          # (B,S,di)
 
     h0 = (cache["ssm"].float() if cache is not None
           else torch.zeros((B, di, ds), dtype=torch.float32, device=x.device))
 
-    if mode == "decode":
-        h = torch.exp(dt[:, 0, :, None] * A) * h0 \
-            + xdt[:, 0, :, None] * Bm[:, 0, None, :]
-        y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None]
-        new_ssm = h
-    else:
-        Lb = S // num_blocks(S, block)
-        h, ys = h0, []
-        for s0 in range(0, S, Lb):
-            blk = slice(s0, s0 + Lb)
-            decay = torch.exp(dt[:, blk, :, None] * A)         # (B,Lb,di,ds)
-            drive = xdt[:, blk, :, None] * Bm[:, blk, None, :]
-            h_blk, h = _ssm_block_scan(decay, drive, h)
-            ys.append(torch.einsum("bsdn,bsn->bsd", h_blk, Cm[:, blk]))
-        y = torch.cat(ys, dim=1)
-        new_ssm = h
+    with record_function("hybrid.mamba.scan"):
+        if mode == "decode":
+            h = torch.exp(dt[:, 0, :, None] * A) * h0 \
+                + xdt[:, 0, :, None] * Bm[:, 0, None, :]
+            y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None]
+            new_ssm = h
+        else:
+            Lb = S // num_blocks(S, block)
+            SCAN.blocks += S // Lb
+            h, ys = h0, []
+            for s0 in range(0, S, Lb):
+                blk = slice(s0, s0 + Lb)
+                decay = torch.exp(dt[:, blk, :, None] * A)     # (B,Lb,di,ds)
+                drive = xdt[:, blk, :, None] * Bm[:, blk, None, :]
+                h_blk, h = _ssm_block_scan(decay, drive, h)
+                ys.append(torch.einsum("bsdn,bsn->bsd", h_blk, Cm[:, blk]))
+            y = torch.cat(ys, dim=1)
+            new_ssm = h
 
     y = y + xc.float() * p["Dskip"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
